@@ -1,9 +1,9 @@
-"""Pallas-vs-XLA crossover sweep over state dimension (docs/PERFORMANCE.md).
+"""Kernel-vs-XLA sweep over state dimension, on the GPU (PERF.md).
 
 For each env family and nx, measures sub-steps/s for ``backend='xla'``
-(lax.scan, carry VMEM-resident while it fits) and ``backend='pallas'`` (fused
-VMEM-interval kernel, ops/pallas1d). The results drive the ``backend='auto'``
-selection rules (``Boundary1DEnv._pallas_auto``).
+(lax.scan) and ``backend='pallas'`` (the interval kernel, ops/pallas1d).
+The results bound where ``backend='auto'`` picks the kernel
+(``_kernel_wins`` in envs/transport.py, burgers.py, reaction_diffusion.py).
 
 One JSON line per measurement:
     {"env": ..., "nx": N, "backend": ..., "value": sub-steps/s}
@@ -13,16 +13,15 @@ import argparse
 import json
 import time
 
-import numpy as np
 
 import jax
 import jax.numpy as jnp
 
 
 def _mk_transport(nx, backend):
-    from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-    from pdecontrolgym_tpu.envs.transport import TransportEnv
-    from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+    from pdecontrolgym_jax.envs.common import Boundary1DConfig
+    from pdecontrolgym_jax.envs.transport import TransportEnv
+    from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
     cfg = Boundary1DConfig(
         T=5.0, dt=1e-4, X=1.0, dx=1.0 / nx, control_sample_rate=0.1,
@@ -34,8 +33,8 @@ def _mk_transport(nx, backend):
 
 
 def _mk_burgers(nx, backend):
-    from pdecontrolgym_tpu.envs.burgers import BurgersConfig, BurgersEnv
-    from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+    from pdecontrolgym_jax.envs.burgers import BurgersConfig, BurgersEnv
+    from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
     cfg = BurgersConfig(
         T=1.0, dt=1e-4, X=1.0, dx=1.0 / nx, control_sample_rate=0.01,
@@ -47,11 +46,11 @@ def _mk_burgers(nx, backend):
 
 
 def _mk_rd(nx, backend):
-    from pdecontrolgym_tpu.envs.reaction_diffusion import (
+    from pdecontrolgym_jax.envs.reaction_diffusion import (
         ReactionDiffusionConfig,
         ReactionDiffusionEnv,
     )
-    from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+    from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
     # explicit FTCS: dt pinned to 0.4x the Fourier stability bound, 100
     # sub-steps per control interval at every size
@@ -72,26 +71,21 @@ def _rd_implicit_rows(num_envs, repeats, solvers):
     amortized over 4 in-program episodes like bench.py; per-env β costs the
     same for thomas/pcr (elementwise over the batch), and dense requires the
     env-invariant default β either way."""
-    from pdecontrolgym_tpu.envs.reaction_diffusion import (
+    from pdecontrolgym_jax.envs.reaction_diffusion import (
         ReactionDiffusionConfig,
         ReactionDiffusionEnv,
     )
-    from pdecontrolgym_tpu.parallel.rollout import rollout
-    from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+    from pdecontrolgym_jax.parallel.rollout import rollout
+    from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
     for solver in solvers:
-        # "<solver>-xla" pins backend="xla" (backend="auto" now routes pcr
-        # through the fused Pallas interval kernel on TPU); "pcr-elimxla"
-        # keeps the kernel but uses the round-4 XLA-side factor elimination
-        # (pcr_elimination="xla") for the A/B row
+        # "<solver>-xla" pins backend="xla" (backend="auto" routes pcr
+        # through the interval kernel on the GPU)
         name, _, forced = solver.partition("-")
-        elim = "kernel"
-        if forced == "elimxla":
-            elim, forced = "xla", ""
         cfg = ReactionDiffusionConfig(
             T=1.0, dt=4e-4, X=1.0, dx=1.0 / 256, control_sample_rate=0.01,
             scheme="implicit", theta=0.5, implicit_solver=name,
-            backend=forced or "auto", pcr_elimination=elim,
+            backend=forced or "auto",
         )
         env = ReactionDiffusionEnv(cfg, TunedReward1D(int(round(cfg.T / cfg.dt))))
         policy = lambda obs, _k: -0.1 * obs[..., -2]
@@ -110,12 +104,12 @@ def _rd_implicit_rows(num_envs, repeats, solvers):
 
         run = jax.jit(run_fn)
         t0 = time.time()
-        float(np.asarray(run(jax.random.key(0))))
+        jax.block_until_ready(run(jax.random.key(0)))
         compile_s = time.time() - t0
         best = float("inf")
         for i in range(repeats):
             t0 = time.perf_counter()
-            float(np.asarray(run(jax.random.key(i + 1))))
+            jax.block_until_ready(run(jax.random.key(i + 1)))
             best = min(best, time.perf_counter() - t0)
         rate = num_envs * 100 * cfg.sample_rate * inner / best
         print(json.dumps({
@@ -126,66 +120,19 @@ def _rd_implicit_rows(num_envs, repeats, solvers):
 
 
 def _measure_backend(env, policy, num_envs, agent_steps, sample_rate, repeats):
-    from pdecontrolgym_tpu.parallel.rollout import rollout
+    from pdecontrolgym_jax.parallel.rollout import rollout
 
     run = jax.jit(lambda key: rollout(
         env, policy, num_envs, agent_steps, key)[1].reward.sum())
     t0 = time.time()
-    float(np.asarray(run(jax.random.key(0))))
+    jax.block_until_ready(run(jax.random.key(0)))
     compile_s = time.time() - t0
     best = float("inf")
     for i in range(repeats):
         t0 = time.perf_counter()
-        float(np.asarray(run(jax.random.key(i + 1))))
+        jax.block_until_ready(run(jax.random.key(i + 1)))
         best = min(best, time.perf_counter() - t0)
     return num_envs * agent_steps * sample_rate / best, compile_s
-
-
-def _sentinel_check(num_envs, repeats):
-    """Round-entry drift guard for the frozen ``backend="auto"`` crossover
-    thresholds (``TransportEnv._pallas_auto`` and peers hardcode a sweep from
-    THIS image's XLA — CLAUDE.md records one round where an XLA upgrade
-    flipped a measured folklore). At a few sentinel sizes, re-measure both
-    backends and assert the auto-picked one still wins (within a 10% noise
-    band). Exits nonzero with re-measure instructions on a flip — run this
-    FIRST after any jax/XLA image change.
-    """
-    import sys
-
-    # (family, nx, maker): sizes straddling each frozen crossover
-    checks = [
-        ("transport", 64, _mk_transport),    # auto keeps XLA below 128
-        ("transport", 256, _mk_transport),   # auto picks Pallas from 128 up
-        ("burgers", 512, _mk_burgers),
-    ]
-    failures = []
-    for name, nx, mk in checks:
-        env_auto, _, _ = mk(nx, "auto")
-        picked = "pallas" if env_auto._pallas_auto() else "xla"
-        rates = {}
-        for backend in ("xla", "pallas"):
-            env, policy, sample_rate = mk(nx, backend)
-            rates[backend], _ = _measure_backend(
-                env, policy, num_envs, 10, sample_rate, repeats)
-        other = "pallas" if picked == "xla" else "xla"
-        ok = rates[picked] >= 0.9 * rates[other]
-        print(json.dumps({
-            "sentinel": name, "nx": nx, "auto_picked": picked,
-            "picked_rate": round(rates[picked]),
-            "other_rate": round(rates[other]), "ok": ok,
-        }), flush=True)
-        if not ok:
-            failures.append((name, nx, picked, rates))
-    if failures:
-        print(
-            "AUTO-BACKEND DRIFT: the frozen crossover thresholds lost at "
-            f"{[(n, x) for n, x, *_ in failures]} on this image's XLA.\n"
-            "Re-measure the full sweep (python bench_backend_sweep.py) and "
-            "update the _pallas_auto rules (envs/transport.py and peers) "
-            "plus docs/PERFORMANCE.md before trusting any auto-mode bench.",
-            file=sys.stderr,
-        )
-        sys.exit(1)
 
 
 def main():
@@ -193,9 +140,6 @@ def main():
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--agent-steps", type=int, default=10)
     ap.add_argument("--repeats", type=int, default=3)
-    ap.add_argument("--sentinel", action="store_true",
-                    help="cheap round-entry drift check of the frozen "
-                         "backend='auto' crossovers (exits 1 on a flip)")
     ap.add_argument("--rd-implicit", default=None,
                     help="comma list of implicit solvers to compare "
                          "(thomas,pcr,dense) instead of the backend sweep")
@@ -205,10 +149,12 @@ def main():
     ap.add_argument("--burgers-nx", default="128,256,512,1024,2048")
     ap.add_argument("--rd-nx", default="128,256,512,1024,2048")
     args = ap.parse_args()
+    if jax.default_backend() != "gpu":
+        raise SystemExit("bench_backend_sweep.py measures the GPU kernel; "
+                         "no GPU found")
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
 
-    if args.sentinel:
-        _sentinel_check(args.envs, args.repeats)
-        return
+    enable_compile_cache()
 
     if args.rd_implicit:
         _rd_implicit_rows(args.envs, args.repeats,

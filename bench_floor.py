@@ -1,12 +1,9 @@
 """Trivial-body floor analysis for the XLA-path env families.
 
-``docs/PERFORMANCE.md`` records transport's trivial-body floor (the same
-interval kernel with a 1-mul body): the physics runs at 63% of it, proving
-the family is compute-bound, not machinery-bound. This harness measures the
-same ratio for the three XLA-path families — traffic ARZ, neuron, brain
-tumor — by running the IDENTICAL rollout harness (same policies, lockstep
-autoreset, rewards, obs, termination/truncation logic) with the PDE body
-replaced by one multiply:
+Measures, for traffic ARZ, neuron and brain tumor, the ratio of the real
+rollout rate to the rate of the IDENTICAL rollout harness (same policies,
+lockstep autoreset, rewards, obs, termination/truncation logic) with the PDE
+body replaced by one multiply:
 
 - traffic: ``_substep`` → ``(0.9995·ρ, 0.9995·y)`` (the Richtmyer two-step
   midpoint scheme is the body; boundary writes, velocity reconstruction,
@@ -23,22 +20,7 @@ One JSON line per family:
 
 A ratio near 1 means the family is machinery-bound (the PDE body is ~free —
 optimizing it further is pointless); a low ratio means the body dominates
-and a fused kernel could pay.
-
-Measured (one v5e chip, 4096 envs — BENCH_SNAPSHOT_r04.md / PERFORMANCE.md):
-- traffic  real 263M / floor 129M (ratio 2.04!): the trivial-body program is
-  SLOWER than the real one. At a 51-point grid the per-step cost is XLA
-  kernel scheduling + machinery (reward norms, velocity recon, obs concat,
-  autoreset selects); the Richtmyer body fuses into kernels the machinery
-  launches anyway, so its marginal cost is ~zero — and removing it reshapes
-  fusion for the worse. Conclusion: machinery/launch-bound; only a fused
-  multi-step episode kernel (everything in VMEM) moves this family.
-- neuron   real 165M / floor 420M (ratio 0.39): the moving-boundary DPR body
-  + embedded control law is ~60% of step cost — compute-bound; a fused body
-  could buy up to 2.5x.
-- brain_tumor real 98M / floor 168M (ratio 0.58): PDE+BED ~40%; the MRI
-  radius reductions + stage machine + reward are the rest. A fused PDE body
-  alone caps out at ~1.7x.
+and a fused kernel could pay. GPU ratios: not measured yet (PERF.md).
 """
 
 import argparse
@@ -48,12 +30,12 @@ import jax
 import jax.numpy as jnp
 
 from bench_families import _measure
-from pdecontrolgym_tpu.core.base import StepOut
+from pdecontrolgym_jax.core.base import StepOut
 
 
 def _traffic(num_envs, repeats, steps):
-    from pdecontrolgym_tpu.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
-    from pdecontrolgym_tpu.rewards.traffic import TrafficARZReward
+    from pdecontrolgym_jax.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+    from pdecontrolgym_jax.rewards.traffic import TrafficARZReward
 
     class FloorEnv(TrafficARZEnv):
         def _substep(self, r, y, q_inlet, q_outlet):
@@ -71,7 +53,7 @@ def _traffic(num_envs, repeats, steps):
 
 
 def _neuron(num_envs, repeats, steps):
-    from pdecontrolgym_tpu.envs.neuron import NeuronConfig, NeuronEnv
+    from pdecontrolgym_jax.envs.neuron import NeuronConfig, NeuronEnv
 
     class FloorEnv(NeuronEnv):
         def step(self, state, action=None, key=None):
@@ -103,8 +85,8 @@ def _neuron(num_envs, repeats, steps):
 
 
 def _brain_tumor(num_envs, repeats, steps):
-    from pdecontrolgym_tpu.envs.brain_tumor import BrainTumorConfig, BrainTumorEnv
-    from pdecontrolgym_tpu.rewards.brain_tumor import BrainTumorReward
+    from pdecontrolgym_jax.envs.brain_tumor import BrainTumorConfig, BrainTumorEnv
+    from pdecontrolgym_jax.rewards.brain_tumor import BrainTumorReward
 
     class FloorEnv(BrainTumorEnv):
         def _fd_update(self, u, R):
@@ -129,7 +111,9 @@ def main():
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--families", default="traffic,neuron,brain_tumor")
     args = ap.parse_args()
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     fns = {"traffic": _traffic, "neuron": _neuron, "brain_tumor": _brain_tumor}
     for name in filter(None, args.families.split(",")):
         real, floor = fns[name](args.envs, args.repeats, args.steps)

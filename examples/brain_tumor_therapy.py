@@ -1,6 +1,6 @@
 """Glioblastoma therapy schedules: open-loop vs the paper's 1.8 Gy/day.
 
-TPU-native port of the BrainTumor1DExample notebook flow: benchmark the
+JAX port of the BrainTumor1DExample notebook flow: benchmark the
 untreated baseline survival, then run treatment schedules through the
 functional TherapyEnv (Growth fast-forwarded at init, Post-Therapy inside one
 step) and report survival extension (the episodic reward).
@@ -11,12 +11,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.brain_tumor import (
+from pdecontrolgym_jax.envs.brain_tumor import (
     BrainTumorConfig,
     BrainTumorEnv,
     TherapyEnv,
 )
-from pdecontrolgym_tpu.rewards.brain_tumor import BrainTumorReward
+from pdecontrolgym_jax.rewards.brain_tumor import BrainTumorReward
 
 
 def main():
@@ -58,4 +58,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,7 +1,7 @@
 """Compare controllers on the 2D Navier-Stokes tracking task: zero action vs
 constant-lid (the target's own action sequence) vs PPO vs SAC.
 
-TPU-native counterpart of the reference's NS training pair
+Batched JAX counterpart of the reference's NS training pair
 (``examples/NavierStokes/NS2Dppo.py:56-66``, ``NS2Dsac.py``): track the
 lid-driven trajectory ``U_ref`` (their ``target.npz``; regenerated here by
 ``make_lid_target``) from random constant initial conditions u,v,p ~ U(-5,5)
@@ -18,15 +18,15 @@ import argparse
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-from pdecontrolgym_tpu.envs import FlatObsEnv, NavierStokesConfig, NavierStokesEnv
-from pdecontrolgym_tpu.envs.navier_stokes import (
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+from pdecontrolgym_jax.envs import FlatObsEnv, NavierStokesConfig, NavierStokesEnv
+from pdecontrolgym_jax.envs.navier_stokes import (
     freeze_boundary_condition,
     make_lid_target,
 )
-from pdecontrolgym_tpu.eval import compare_controllers
-from pdecontrolgym_tpu.rewards.ns import NSReward
+from pdecontrolgym_jax.eval import compare_controllers
+from pdecontrolgym_jax.rewards.ns import NSReward
 
 BC = freeze_boundary_condition({
     "upper": ["Controllable", "Dirchilet"],
@@ -95,7 +95,7 @@ def main():
             env, {"ppo": trainer.policy(runner.params)},
             num_episodes=args.episodes, max_steps=200))
         if args.save_params:
-            from pdecontrolgym_tpu.utils import save_params
+            from pdecontrolgym_jax.utils import save_params
 
             save_params(f"{args.save_params}/ns_ppo.msgpack", runner.params)
 
@@ -120,7 +120,7 @@ def main():
             env, {"sac": trainer.policy(runner.actor_params)},
             num_episodes=args.episodes, max_steps=200))
         if args.save_params:
-            from pdecontrolgym_tpu.utils import save_params
+            from pdecontrolgym_jax.utils import save_params
 
             save_params(f"{args.save_params}/ns_sac.msgpack", runner.actor_params)
 
@@ -130,4 +130,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

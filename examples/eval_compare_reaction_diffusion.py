@@ -1,6 +1,6 @@
 """Compare controllers on 1D reaction-diffusion: backstepping vs PPO vs SAC.
 
-TPU-native ``examples/reactionDiffusionPDE/reactionDiffusion1DtestAlgorithm.py``.
+Batched JAX port of ``examples/reactionDiffusionPDE/reactionDiffusion1DtestAlgorithm.py``.
 Published reference numbers (ParabolicPDEExample.ipynb cells 14-16):
 backstepping 298.98, PPO 293.19, SAC 233.11 (avg reward over 50 episodes).
 
@@ -19,15 +19,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.backstepping import parabolic_control, parabolic_kernel
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-from pdecontrolgym_tpu.envs.reaction_diffusion import (
+from pdecontrolgym_jax.agents.backstepping import parabolic_control, parabolic_kernel
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+from pdecontrolgym_jax.envs.reaction_diffusion import (
     ReactionDiffusionConfig,
     ReactionDiffusionEnv,
 )
-from pdecontrolgym_tpu.eval import compare_controllers
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.eval import compare_controllers
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 T, DT, DX, X = 1.0, 1e-5, 5e-3, 1.0
 NX = int(round(X / DX))
@@ -61,7 +61,7 @@ def main():
 
     logger = None
     if args.log_dir:
-        from pdecontrolgym_tpu.utils import MetricsLogger
+        from pdecontrolgym_jax.utils import MetricsLogger
 
         logger = MetricsLogger(args.log_dir)
 
@@ -124,7 +124,7 @@ def main():
             num_episodes=args.episodes, max_steps=1000,
         ))
         if args.save_params:
-            from pdecontrolgym_tpu.utils import save_params
+            from pdecontrolgym_jax.utils import save_params
 
             save_params(f"{args.save_params}/rd_ppo.msgpack", runner.params)
 
@@ -143,7 +143,7 @@ def main():
             num_episodes=args.episodes, max_steps=1000,
         ))
         if args.save_params:
-            from pdecontrolgym_tpu.utils import save_params
+            from pdecontrolgym_jax.utils import save_params
 
             save_params(f"{args.save_params}/rd_sac.msgpack", runner.actor_params)
 
@@ -153,4 +153,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

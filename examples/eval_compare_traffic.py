@@ -1,6 +1,6 @@
 """Compare ARZ traffic outlet controllers: backstepping law vs PPO.
 
-TPU-native counterpart of the reference traffic tutorial's RL section
+Batched JAX counterpart of the reference traffic tutorial's RL section
 (``docs/source/tutorials/Trafficarz1d_tutorial.rst:256-309``): train PPO in
 the ``outlet-train`` mode (stochastic steady-state resampling + normalized
 deviation observations, ``traffic_arz_env.py:67,231``), then evaluate in the
@@ -20,10 +20,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.envs import TanhBoxActionEnv, TransformObsEnv
-from pdecontrolgym_tpu.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv, veq
-from pdecontrolgym_tpu.rewards import TrafficARZReward
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.envs import TanhBoxActionEnv, TransformObsEnv
+from pdecontrolgym_jax.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv, veq
+from pdecontrolgym_jax.rewards import TrafficARZReward
 
 
 def backstepping_controller(cfg, env):
@@ -131,12 +131,12 @@ def main():
         pol = trainer.policy(runner.params)
         rows["ppo"] = episode_metrics(env_pol, lambda o: pol(o[None])[0])
         if args.save_params:
-            from pdecontrolgym_tpu.utils import save_params
+            from pdecontrolgym_jax.utils import save_params
 
             save_params(f"{args.save_params}/traffic_ppo.msgpack", runner.params)
 
     if args.sac_iters > 0:
-        from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
+        from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
 
         # SAC trains on the RAW outlet-train env: its tanh actor scales
         # straight onto the flux box (no TanhBoxActionEnv double-squash)
@@ -174,7 +174,7 @@ def main():
         pol = sac.policy(runner.actor_params)
         rows["sac"] = episode_metrics(env_sac_eval, lambda o: pol(o[None])[0])
         if args.save_params:
-            from pdecontrolgym_tpu.utils import save_params
+            from pdecontrolgym_jax.utils import save_params
 
             save_params(f"{args.save_params}/traffic_sac.msgpack",
                         runner.actor_params)
@@ -187,4 +187,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

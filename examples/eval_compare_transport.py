@@ -1,6 +1,6 @@
 """Compare controllers on 1D transport: backstepping vs PPO vs random.
 
-TPU-native ``examples/transportPDE/transport1DtestAlgorithm.py``: N evaluation
+Batched JAX port of ``examples/transportPDE/transport1DtestAlgorithm.py``: N evaluation
 episodes run as one vmapped batch per controller. Trains a quick PPO policy
 in-process (pass --ppo-iters 0 to skip).
 """
@@ -10,12 +10,12 @@ import argparse
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.backstepping import transport_control, transport_kernel
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.eval import compare_controllers
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.agents.backstepping import transport_control, transport_kernel
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.eval import compare_controllers
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 
 def main():
@@ -104,13 +104,13 @@ def main():
             num_episodes=args.episodes, max_steps=50,
         ))
         if args.save_params:
-            from pdecontrolgym_tpu.utils import save_params
+            from pdecontrolgym_jax.utils import save_params
 
             save_params(f"{args.save_params}/transport_ppo.msgpack",
                         runner.params)
 
     if args.sac_iters > 0:
-        from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
+        from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
 
         # off-policy: the update count matters more than env steps
         # (2500 iters x 32 updates ~ 80K updates -> mean return ~230)
@@ -129,7 +129,7 @@ def main():
             num_episodes=args.episodes, max_steps=50,
         ))
         if args.save_params:
-            from pdecontrolgym_tpu.utils import save_params
+            from pdecontrolgym_jax.utils import save_params
 
             save_params(f"{args.save_params}/transport_sac.msgpack",
                         srunner.actor_params)
@@ -139,4 +139,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

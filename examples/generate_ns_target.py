@@ -13,12 +13,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.navier_stokes import (
+from pdecontrolgym_jax.envs.navier_stokes import (
     NavierStokesConfig,
     NavierStokesEnv,
     freeze_boundary_condition,
 )
-from pdecontrolgym_tpu.rewards.ns import NSReward
+from pdecontrolgym_jax.rewards.ns import NSReward
 
 
 def main():
@@ -27,7 +27,7 @@ def main():
     ap.add_argument("--lid", type=float, default=2.0)
     args = ap.parse_args()
 
-    from pdecontrolgym_tpu.envs.navier_stokes import make_lid_target
+    from pdecontrolgym_jax.envs.navier_stokes import make_lid_target
 
     bc = freeze_boundary_condition({
         "upper": ["Controllable", "Dirchilet"],
@@ -45,4 +45,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

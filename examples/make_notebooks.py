@@ -36,7 +36,7 @@ TRANSPORT = [
     ("md", """
 # 1D Transport PDE: boundary control walkthrough
 
-TPU-native counterpart of the reference's `HyperbolicPDEExample.ipynb`: the
+Batched JAX counterpart of the reference's `HyperbolicPDEExample.ipynb`: the
 same transport environment (T=5, dt=1e-4, dx=1e-2, control every 0.1s),
 driven by the PDE-backstepping controller — first through the Gymnasium
 adapter, then as a batch of vmapped envs in one jitted program.
@@ -45,9 +45,9 @@ adapter, then as a batch of vmapped envs in one jitted program.
 import numpy as np
 import jax, jax.numpy as jnp
 import gymnasium as gym
-import pdecontrolgym_tpu
-from pdecontrolgym_tpu.agents.backstepping import transport_kernel, transport_control
-from pdecontrolgym_tpu.rewards import TunedReward1D
+import pdecontrolgym_jax
+from pdecontrolgym_jax.agents.backstepping import transport_kernel, transport_control
+from pdecontrolgym_jax.rewards import TunedReward1D
 
 T, dt, dx, X = 5.0, 1e-4, 1e-2, 1.0
 nx = int(round(X / dx))
@@ -85,16 +85,16 @@ print(f"total reward {total:.2f}, final L2 {np.linalg.norm(obs):.4f}")
 # the full episode history lives in env.u like the reference (sub-step rows)
 %matplotlib inline
 import matplotlib.pyplot as plt
-from pdecontrolgym_tpu.utils.plotting import spacetime_1d
+from pdecontrolgym_jax.utils.plotting import spacetime_1d
 
 spacetime_1d(env.unwrapped.u[::200], X=X, T=T)
 plt.show()
 print("state decays from u(x,0)=5 to ~0 under boundary control")
 """),
     ("code", """
-# the TPU path: 256 envs with random ICs, one jitted rollout
-from pdecontrolgym_tpu.envs import Boundary1DConfig, TransportEnv
-from pdecontrolgym_tpu.parallel.rollout import rollout
+# the batched path: 256 envs with random ICs, one jitted rollout
+from pdecontrolgym_jax.envs import Boundary1DConfig, TransportEnv
+from pdecontrolgym_jax.parallel.rollout import rollout
 
 cfg = Boundary1DConfig(T=T, dt=dt, X=X, dx=dx, control_sample_rate=0.1,
                        limit_pde_state_size=True)
@@ -117,10 +117,10 @@ PPO **189.98**, SAC **179.90**; the reference's backstepping average is
 """),
     ("code", """
 import dataclasses, os
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-from pdecontrolgym_tpu.eval import compare_controllers
-from pdecontrolgym_tpu.utils import load_params
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+from pdecontrolgym_jax.eval import compare_controllers
+from pdecontrolgym_jax.utils import load_params
 
 env_rl = TransportEnv(dataclasses.replace(cfg, normalize=True,
                                           max_control_value=20.0),
@@ -187,7 +187,7 @@ PARABOLIC = [
     ("md", """
 # 1D Reaction-Diffusion (Parabolic) PDE: boundary control walkthrough
 
-TPU-native counterpart of the reference's `ParabolicPDEExample.ipynb`
+Batched JAX counterpart of the reference's `ParabolicPDEExample.ipynb`
 (`/root/reference/examples/reactionDiffusionPDE/`). Published reference
 numbers: backstepping **298.98**, PPO **293.19**, SAC **233.11** (avg reward
 over 50 random episodes, cells 14-16), and the deterministic fixed-IC table
@@ -199,11 +199,11 @@ import numpy as np
 import jax, jax.numpy as jnp
 import matplotlib.pyplot as plt
 
-from pdecontrolgym_tpu.agents.backstepping import parabolic_control, parabolic_kernel
-from pdecontrolgym_tpu.envs.reaction_diffusion import (
+from pdecontrolgym_jax.agents.backstepping import parabolic_control, parabolic_kernel
+from pdecontrolgym_jax.envs.reaction_diffusion import (
     ReactionDiffusionConfig, ReactionDiffusionEnv)
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
-from pdecontrolgym_tpu.eval import compare_controllers
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.eval import compare_controllers
 
 T, DT, DX, X = 1.0, 1e-5, 5e-3, 1.0
 NX = int(round(X / DX))
@@ -238,7 +238,7 @@ rews, rows = run_episode(u0)
 print(f"episode reward: {float(rews.sum()):.2f}   final L2: "
       f"{float(jnp.linalg.norm(rows[-1])):.4f}")
 
-from pdecontrolgym_tpu.utils.plotting import surface_1d
+from pdecontrolgym_jax.utils.plotting import surface_1d
 surface_1d(np.asarray(rows)[::10], X=X, T=T)
 plt.tight_layout(); plt.show()
 """),
@@ -278,9 +278,9 @@ for scale in (1.0, 10.0):
 # 232.75/9700.64). Policies restored below in the RL section's env_rl
 # wiring — defined here after a forward import to keep the table together.
 import dataclasses, os
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-from pdecontrolgym_tpu.utils import load_params
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+from pdecontrolgym_jax.utils import load_params
 
 env_rl = ReactionDiffusionEnv(dataclasses.replace(cfg, normalize=True), reward)
 ckpt = os.path.join(os.getcwd(), "checkpoints")
@@ -321,9 +321,9 @@ with eval-selected checkpoints) — policy parameters restored from
 """),
     ("code", """
 import dataclasses, os
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-from pdecontrolgym_tpu.utils import load_params
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+from pdecontrolgym_jax.utils import load_params
 
 env_rl = ReactionDiffusionEnv(dataclasses.replace(cfg, normalize=True), reward)
 ckpt = os.path.join(os.getcwd(), "checkpoints")
@@ -354,7 +354,7 @@ BRAIN_TUMOR = [
     ("md", """
 # 1D Glioblastoma therapy scheduling walkthrough
 
-TPU-native counterpart of the reference's `BrainTumor1DExample.ipynb`: the
+Batched JAX counterpart of the reference's `BrainTumor1DExample.ipynb`: the
 diffusion–proliferation–radiation PDE with the 3-stage episode machine
 (Growth → Therapy → Post-Therapy), simulated-MRI tumor radii, the BED
 radiation model, and the 5-trial protocol comparison table (reference cell
@@ -364,9 +364,9 @@ radiation model, and the 5-trial protocol comparison table (reference cell
 import numpy as np
 import jax, jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.brain_tumor import (
+from pdecontrolgym_jax.envs.brain_tumor import (
     BrainTumorConfig, BrainTumorEnv, TherapyEnv)
-from pdecontrolgym_tpu.rewards.brain_tumor import BrainTumorReward
+from pdecontrolgym_jax.rewards.brain_tumor import BrainTumorReward
 
 cfg = BrainTumorConfig(total_dosage=61.2)
 base = BrainTumorEnv(cfg, BrainTumorReward())
@@ -396,8 +396,8 @@ paper = lambda obs, day, key: 1.8 / 61.2  # 1.8 Gy/day until the budget runs out
     ("code", """
 # RL policy (PPO trained on-device; examples/train_ppo_brain_tumor.py)
 import os
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.utils import load_params
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.utils import load_params
 
 class DoseActionTherapyEnv(TherapyEnv):
     def init(self, key, t_benchmark=None):
@@ -494,7 +494,7 @@ TRAFFIC = [
     ("md", """
 # ARZ traffic flow: backstepping + RL outlet control walkthrough
 
-TPU-native counterpart of the reference's two traffic notebooks
+Batched JAX counterpart of the reference's two traffic notebooks
 (`examples/TrafficPDE1D/Backstepping control.ipynb`, `RL control.ipynb`) and
 the tutorial (`docs/source/tutorials/Trafficarz1d_tutorial.rst`): stabilize
 the Aw–Rascle–Zhang traffic state (ρ, v) to the steady state (ρ*=0.12,
@@ -506,8 +506,8 @@ import numpy as np
 import jax, jax.numpy as jnp
 import matplotlib.pyplot as plt
 
-from pdecontrolgym_tpu.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
-from pdecontrolgym_tpu.rewards import TrafficARZReward
+from pdecontrolgym_jax.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+from pdecontrolgym_jax.rewards import TrafficARZReward
 
 cfg = TrafficARZConfig(simulation_type="outlet")
 env = TrafficARZEnv(cfg, TrafficARZReward())
@@ -567,9 +567,9 @@ normalization.
 """),
     ("code", """
 import os
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.envs import TanhBoxActionEnv, TransformObsEnv
-from pdecontrolgym_tpu.utils import load_params
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.envs import TanhBoxActionEnv, TransformObsEnv
+from pdecontrolgym_jax.utils import load_params
 
 env_pol = TransformObsEnv(
     TanhBoxActionEnv(env),
@@ -623,4 +623,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,9 +1,9 @@
 """Multi-chip PPO: envs sharded over a device mesh, params replicated.
 
-On a real TPU slice this runs unchanged — the mesh picks up every local
-device, and on multi-host pods ``multihost_env_mesh(coordinator, n, i)``
-initializes DCN first. For a laptop/CI demonstration, force a virtual
-8-device CPU mesh:
+On a multi-GPU host this runs unchanged in one process — the mesh picks up
+every local device; across hosts ``multihost_env_mesh(coordinator, n, i)``
+initializes ``jax.distributed`` first. For a laptop/CI demonstration, force
+a virtual 8-device CPU mesh:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python examples/multichip_ppo.py --iterations 20
@@ -13,11 +13,11 @@ import argparse
 
 import jax
 
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.parallel.mesh import env_mesh
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.parallel.mesh import env_mesh
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 
 def main():
@@ -55,4 +55,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -5,8 +5,10 @@ simulation: N separate Python processes (coordinator + workers) each own a
 disjoint set of devices, ``jax.distributed.initialize`` connects them, the
 env batch shards over the GLOBAL mesh (``parallel/mesh.multihost_env_mesh``),
 and the sharded PPO ``train_step`` (``agents/ppo.py``) runs with replicated
-params and cross-process ``pmean`` gradients — on CPU the collectives ride
-Gloo, on a TPU pod the identical program rides ICI/DCN.
+params and cross-process ``pmean`` gradients; on the CPU the collectives
+ride Gloo. The demo spawns processes on the CPU only: a JAX process reserves
+most of a GPU's memory, so one card takes one process (``chip_smoke.py
+--four`` drives four cards from one process).
 
 Each process prints a ``RESULT`` line with its loss / mean reward / parameter
 checksum after the final iteration; identical values across processes prove
@@ -21,9 +23,7 @@ Or manually, one command per host/process:
     python examples/multihost_demo.py --coordinator host0:29531 \
         --num-processes 2 --process-id {0,1}
 
-The reference has no distributed anything (SURVEY.md section 2.3); this
-subsystem is TPU-native scope from BASELINE.json (>=80% scaling at N>=2
-hosts).
+The reference has no distributed anything (SURVEY.md section 2.3).
 """
 
 import argparse
@@ -105,11 +105,11 @@ def run(args):
 
     import numpy as np
 
-    from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-    from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-    from pdecontrolgym_tpu.envs.transport import TransportEnv
-    from pdecontrolgym_tpu.parallel.mesh import multihost_env_mesh
-    from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+    from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_jax.envs.common import Boundary1DConfig
+    from pdecontrolgym_jax.envs.transport import TransportEnv
+    from pdecontrolgym_jax.parallel.mesh import multihost_env_mesh
+    from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
     if args.num_processes > 1:
         mesh = multihost_env_mesh(
@@ -129,7 +129,7 @@ def run(args):
     env = TransportEnv(cfg, TunedReward1D(cfg.nt - 1))
     num_envs = args.envs_per_device * n_dev
     if args.algo == "sac":
-        from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
+        from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
 
         trainer = SACTrainer(
             env,

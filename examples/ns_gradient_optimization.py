@@ -1,6 +1,6 @@
 """Model-based trajectory optimization for 2D Navier-Stokes boundary control.
 
-TPU-native redesign of ``examples/NavierStokes/NS2Doptimization.py:56-118``:
+JAX redesign of ``examples/NavierStokes/NS2Doptimization.py:56-118``:
 the reference hand-derives and integrates an adjoint PDE backwards in time to
 get action gradients. Here the whole rollout is differentiable, so the adjoint
 IS ``jax.grad`` — one line — with ``jax.checkpoint`` rematerializing the
@@ -14,12 +14,12 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from pdecontrolgym_tpu.envs.navier_stokes import (
+from pdecontrolgym_jax.envs.navier_stokes import (
     NavierStokesConfig,
     NavierStokesEnv,
     freeze_boundary_condition,
 )
-from pdecontrolgym_tpu.rewards.ns import NSReward
+from pdecontrolgym_jax.rewards.ns import NSReward
 
 T, DT = 0.2, 1e-3
 NT = int(round(T / DT))
@@ -61,7 +61,7 @@ def main():
 
     # --- generate the tracking target: a lid velocity of 2.0 (the reference's
     # target.npz is an equivalent precomputed lid-driven trajectory) ---------
-    from pdecontrolgym_tpu.envs.navier_stokes import make_lid_target
+    from pdecontrolgym_jax.envs.navier_stokes import make_lid_target
 
     env0 = build_env(np.zeros((NT, 21, 21, 2)), np.zeros(NT))
     U_ref, action_ref = make_lid_target(env0.config, lid=2.0,
@@ -87,4 +87,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -17,7 +17,7 @@ Default reproduces the committed figure:
 import argparse
 import os
 
-from pdecontrolgym_tpu.utils.plotting import (
+from pdecontrolgym_jax.utils.plotting import (
     load_csv,
     load_jsonl,
     reward_curves,
@@ -60,4 +60,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -12,8 +12,8 @@ Runs on an 8-virtual-device CPU mesh by default so it works anywhere:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/spatial_sharding_demo.py
 
-On a TPU slice, drop the env pinning and pick `spatial_shards` to fit the
-grid; everything else is identical.
+On a multi-GPU host, drop the env pinning and pick `spatial_shards` to fit
+the grid; everything else is identical.
 """
 
 import os
@@ -30,14 +30,14 @@ import jax.numpy as jnp
 
 jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS", "cpu"))
 
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.parallel import (
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.parallel import (
     env_spatial_mesh,
     make_sharded_env,
     rollout,
 )
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 
 def main():
@@ -65,4 +65,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,6 +1,6 @@
 """ARZ traffic outlet boundary control with the tutorial's backstepping law.
 
-TPU-native port of the controller in
+JAX port of the controller in
 ``docs/source/tutorials/Trafficarz1d_tutorial.rst:146-186``, run as one jitted
 960-step closed-loop rollout (and a batched variant across control gains).
 """
@@ -10,8 +10,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
-from pdecontrolgym_tpu.rewards import TrafficARZReward
+from pdecontrolgym_jax.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+from pdecontrolgym_jax.rewards import TrafficARZReward
 
 
 def main():
@@ -53,4 +53,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

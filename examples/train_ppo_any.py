@@ -14,31 +14,31 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.rewards import TunedReward1D
-from pdecontrolgym_tpu.utils import save
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.rewards import TunedReward1D
+from pdecontrolgym_jax.utils import save
 
 
-from pdecontrolgym_tpu.envs import FlatObsEnv
+from pdecontrolgym_jax.envs import FlatObsEnv
 
 
 def build(name):
     if name == "transport":
-        from pdecontrolgym_tpu.envs import Boundary1DConfig, TransportEnv
+        from pdecontrolgym_jax.envs import Boundary1DConfig, TransportEnv
 
         cfg = Boundary1DConfig(T=5.0, dt=1e-4, X=1.0, dx=1e-2,
                                control_sample_rate=0.1, normalize=True,
                                limit_pde_state_size=True)
         return TransportEnv(cfg, TunedReward1D(int(round(cfg.T / cfg.dt)), -1e3, 3e2))
     if name == "reaction_diffusion":
-        from pdecontrolgym_tpu.envs import ReactionDiffusionConfig, ReactionDiffusionEnv
+        from pdecontrolgym_jax.envs import ReactionDiffusionConfig, ReactionDiffusionEnv
 
         cfg = ReactionDiffusionConfig(T=1.0, dt=1e-5, X=1.0, dx=5e-3,
                                       control_sample_rate=1e-3, normalize=True,
                                       limit_pde_state_size=True)
         return ReactionDiffusionEnv(cfg, TunedReward1D(int(round(cfg.T / cfg.dt)), -1e3, 3e2))
     if name == "burgers":
-        from pdecontrolgym_tpu.envs import BurgersConfig, BurgersEnv
+        from pdecontrolgym_jax.envs import BurgersConfig, BurgersEnv
 
         # CFL needs |u|·dt/dx <= 1: cap the control map at ±5 and truncate
         # blow-ups (divergence masking) so exploration can't poison the batch
@@ -48,11 +48,11 @@ def build(name):
                             max_state_value=1e4, truncate_on_nonfinite=True)
         return BurgersEnv(cfg, TunedReward1D(int(round(cfg.T / cfg.dt))))
     if name == "ns":
-        from pdecontrolgym_tpu.envs import (
+        from pdecontrolgym_jax.envs import (
             NavierStokesConfig, NavierStokesEnv, freeze_boundary_condition,
         )
-        from pdecontrolgym_tpu.envs.navier_stokes import make_lid_target
-        from pdecontrolgym_tpu.rewards.ns import NSReward
+        from pdecontrolgym_jax.envs.navier_stokes import make_lid_target
+        from pdecontrolgym_jax.rewards.ns import NSReward
 
         bc = freeze_boundary_condition({
             "upper": ["Controllable", "Dirchilet"],
@@ -97,4 +97,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

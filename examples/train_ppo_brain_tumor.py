@@ -14,14 +14,14 @@ import argparse
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.envs.brain_tumor import (
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.envs.brain_tumor import (
     BrainTumorConfig,
     BrainTumorEnv,
     DoseTherapyEnv,
     TherapyEnv,
 )
-from pdecontrolgym_tpu.rewards.brain_tumor import BrainTumorReward
+from pdecontrolgym_jax.rewards.brain_tumor import BrainTumorReward
 
 
 def main():
@@ -48,7 +48,7 @@ def main():
     # eval-based checkpoint selection (the schedule's return = survival
     # extension minus toxicity, the notebook table's metric up to the
     # toxicity term) — the policy peaks and then over-trains like RD PPO
-    from pdecontrolgym_tpu.eval import compare_controllers
+    from pdecontrolgym_jax.eval import compare_controllers
 
     def eval_fn(params):
         r = compare_controllers(env, {"c": trainer.policy(params)},
@@ -79,10 +79,13 @@ def main():
     print(f"learned schedule: survival {int(state.simulation_days)} days "
           f"({int(state.simulation_days) - tb:+d} vs baseline), return {total:.1f}")
     if args.save_params:
-        from pdecontrolgym_tpu.utils import save_params
+        from pdecontrolgym_jax.utils import save_params
 
         save_params(f"{args.save_params}/brain_tumor_ppo.msgpack", runner.params)
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -12,9 +12,9 @@ import argparse
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
-from pdecontrolgym_tpu.rewards.traffic import TrafficARZReward
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+from pdecontrolgym_jax.rewards.traffic import TrafficARZReward
 
 
 class PolicyActionTrafficEnv(TrafficARZEnv):
@@ -66,4 +66,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

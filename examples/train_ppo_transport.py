@@ -1,6 +1,6 @@
 """Train PPO on the 1D transport boundary-control problem.
 
-TPU-native replacement for ``examples/transportPDE/transport1Dppo.py``: the
+On-device replacement for ``examples/transportPDE/transport1Dppo.py``: the
 reference trains SB3 PPO against one Python env for 1e6 steps; here 1024 envs
 step in lockstep inside the jitted train loop. Checkpoints go through orbax
 (``utils/checkpointing``) instead of SB3's CheckpointCallback.
@@ -10,11 +10,11 @@ import argparse
 
 import jax
 
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
-from pdecontrolgym_tpu.utils import save
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.utils import save
 
 
 def build_env():
@@ -61,7 +61,7 @@ def main():
 
     logger = None
     if args.log_dir:
-        from pdecontrolgym_tpu.utils import MetricsLogger
+        from pdecontrolgym_jax.utils import MetricsLogger
 
         logger = MetricsLogger(args.log_dir)
 
@@ -76,7 +76,7 @@ def main():
     if args.eval_every > 0:
         import jax.numpy as jnp
 
-        from pdecontrolgym_tpu.eval import episode_returns
+        from pdecontrolgym_jax.eval import episode_returns
 
         @jax.jit
         def eval_fn(params):
@@ -98,4 +98,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -11,8 +11,8 @@ import argparse
 
 import jax
 
-from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-from pdecontrolgym_tpu.utils import save
+from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+from pdecontrolgym_jax.utils import save
 from train_ppo_any import build  # same env zoo
 
 
@@ -52,4 +52,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -15,14 +15,14 @@ import argparse
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-from pdecontrolgym_tpu.envs.brain_tumor import (
+from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+from pdecontrolgym_jax.envs.brain_tumor import (
     BrainTumorConfig,
     BrainTumorEnv,
     DoseTherapyEnv,
     TherapyEnv,
 )
-from pdecontrolgym_tpu.rewards.brain_tumor import BrainTumorReward
+from pdecontrolgym_jax.rewards.brain_tumor import BrainTumorReward
 
 
 def main():
@@ -46,7 +46,7 @@ def main():
         gamma=0.999, lr=1e-3, init_alpha=0.1, reward_scale=0.05,
     ))
 
-    from pdecontrolgym_tpu.eval import compare_controllers
+    from pdecontrolgym_jax.eval import compare_controllers
 
     def eval_fn(params):
         r = compare_controllers(env, {"c": sac.policy(params)},
@@ -77,7 +77,7 @@ def main():
           f"({int(state.simulation_days) - tb:+d} vs baseline), "
           f"return {total:.1f}")
     if args.save_params:
-        from pdecontrolgym_tpu.utils import save_params
+        from pdecontrolgym_jax.utils import save_params
 
         save_params(f"{args.save_params}/brain_tumor_sac.msgpack",
                     runner.actor_params)
@@ -85,4 +85,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

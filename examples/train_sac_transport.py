@@ -1,6 +1,6 @@
 """Train SAC on the 1D transport boundary-control problem.
 
-TPU-native replacement for ``examples/transportPDE/transport1Dsac.py`` (SB3
+On-device replacement for ``examples/transportPDE/transport1Dsac.py`` (SB3
 SAC, single env): device-resident replay buffer, 64 lockstep envs, twin-Q +
 learnable temperature, all inside one jitted train step.
 """
@@ -9,11 +9,11 @@ import argparse
 
 import jax
 
-from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
-from pdecontrolgym_tpu.utils import save
+from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.utils import save
 
 
 def main():
@@ -46,4 +46,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,6 +1,6 @@
 """Closed-loop backstepping control of the 1D transport PDE.
 
-TPU-native port of ``examples/transportPDE/transport1Dbackstepping.py``: the
+JAX port of ``examples/transportPDE/transport1Dbackstepping.py``: the
 same episode (T=5, dt=1e-4, dx=1e-2, control every 0.1s) driven through the
 Gymnasium adapter, plus the same rollout executed as a single jitted lax.scan
 over a batch of envs — the intended high-throughput path.
@@ -13,11 +13,11 @@ import jax.numpy as jnp
 
 import gymnasium as gym
 
-import pdecontrolgym_tpu  # noqa: F401  (registers PDEControlGym-* ids)
-from pdecontrolgym_tpu.agents.backstepping import transport_control, transport_kernel
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.rewards import TunedReward1D
+import pdecontrolgym_jax  # noqa: F401  (registers PDEControlGym-* ids)
+from pdecontrolgym_jax.agents.backstepping import transport_control, transport_kernel
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.rewards import TunedReward1D
 
 T, dt, dx, X = 5.0, 1e-4, 1e-2, 1.0
 nx = int(round(X / dx))
@@ -85,4 +85,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from pdecontrolgym_jax.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

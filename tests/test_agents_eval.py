@@ -5,11 +5,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.eval import compare_controllers, episode_returns
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.eval import compare_controllers, episode_returns
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 
 def _env():
@@ -39,7 +39,7 @@ def test_sac_trains_and_is_finite():
 
 def test_eval_harness_episode_returns():
     env = _env()
-    from pdecontrolgym_tpu.agents.backstepping import transport_control, transport_kernel
+    from pdecontrolgym_jax.agents.backstepping import transport_control, transport_kernel
 
     nx = 100
     sp = jnp.linspace(env.config.dx, 1.0, nx)
@@ -61,8 +61,8 @@ def test_eval_harness_episode_returns():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-    from pdecontrolgym_tpu.utils import restore, save
+    from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_jax.utils import restore, save
 
     env = _env()
     trainer = PPOTrainer(env, PPOConfig(num_envs=8, num_steps=4, hidden=(16, 16),
@@ -82,7 +82,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 def test_metrics_logger(tmp_path):
     import json
-    from pdecontrolgym_tpu.utils import MetricsLogger
+    from pdecontrolgym_jax.utils import MetricsLogger
 
     logger = MetricsLogger(str(tmp_path), tensorboard=False)
     logger.log(0, {"mean_reward": jnp.float32(1.5)})
@@ -93,7 +93,7 @@ def test_metrics_logger(tmp_path):
 
 
 def test_sac_sharded_eight_devices():
-    from pdecontrolgym_tpu.parallel.mesh import env_mesh
+    from pdecontrolgym_jax.parallel.mesh import env_mesh
 
     assert jax.device_count() >= 8
     env = _env()

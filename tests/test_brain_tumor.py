@@ -1,18 +1,17 @@
 """Brain-tumor env + therapy staging parity vs the reference."""
 
 import numpy as np
-import pytest
 
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.brain_tumor import (
+from pdecontrolgym_jax.envs.brain_tumor import (
     BrainTumorConfig,
     BrainTumorEnv,
     TherapyEnv,
     GROWTH, THERAPY, POST_THERAPY,
 )
-from pdecontrolgym_tpu.rewards.brain_tumor import BrainTumorReward
+from pdecontrolgym_jax.rewards.brain_tumor import BrainTumorReward
 
 from reference_loader import load_reference_module
 
@@ -39,7 +38,7 @@ def _ref(total_dosage=61.2):
     return bt, env
 
 
-def _tpu(total_dosage=61.2):
+def _jax_env(total_dosage=61.2):
     cfg = BrainTumorConfig(total_dosage=total_dosage, dtype=jnp.float64, **PARAMS)
     return BrainTumorEnv(cfg, BrainTumorReward())
 
@@ -51,7 +50,7 @@ def test_staged_episode_parity_paper_schedule():
     robs, _ = ref.reset()
     ref.t_benchmark = 100  # pretend benchmark so rewards are non-trivial
 
-    env = _tpu()
+    env = _jax_env()
     step = jax.jit(env.step)
     state, tobs = env.init_from(_ic(), t_benchmark=100)
     np.testing.assert_allclose(robs, np.asarray(tobs), rtol=1e-12)
@@ -81,15 +80,15 @@ def test_therapy_wrapper_benchmark_and_episode_match():
     ref_wrap = bt.TherapyWrapper(ref_base, weekends=False, verbose=False)
     ref_tb = ref_wrap.benchmark()
 
-    env = _tpu()
+    env = _jax_env()
     ther = TherapyEnv(env)
-    tpu_tb = int(jax.jit(ther.benchmark)(jax.random.key(0)))
-    assert ref_tb == tpu_tb
+    jax_tb = int(jax.jit(ther.benchmark)(jax.random.key(0)))
+    assert ref_tb == jax_tb
 
     # wrapped episode with a fixed dose fraction
     robs, _ = ref_wrap.reset()
     state, tobs = jax.jit(ther.init, static_argnames="t_benchmark")(
-        jax.random.key(0), t_benchmark=tpu_tb
+        jax.random.key(0), t_benchmark=jax_tb
     )
     np.testing.assert_allclose(robs, np.asarray(tobs), rtol=1e-9)
 
@@ -113,7 +112,7 @@ def test_weekend_breaks_match_reference():
     ref_wrap = bt.TherapyWrapper(ref_base, weekends=True, verbose=False)
     tb = ref_wrap.benchmark()
 
-    env = _tpu()
+    env = _jax_env()
     ther = TherapyEnv(env, weekends=True)
     robs, _ = ref_wrap.reset()
     state, tobs = jax.jit(ther.init, static_argnames="t_benchmark")(
@@ -131,8 +130,8 @@ def test_weekend_breaks_match_reference():
 
 def test_gym_adapter_brain_tumor():
     import gymnasium as gym
-    import pdecontrolgym_tpu  # noqa: F401
-    from pdecontrolgym_tpu.compat.adapter import TherapyWrapper as TPUWrapper
+    import pdecontrolgym_jax  # noqa: F401
+    from pdecontrolgym_jax.compat.adapter import TherapyWrapper as JaxWrapper
 
     env = gym.make(
         "PDEControlGym-BrainTumor1D",
@@ -143,7 +142,7 @@ def test_gym_adapter_brain_tumor():
         normalize=True,
         **PARAMS,
     ).unwrapped
-    wrap = TPUWrapper(env, weekends=False, verbose=False)
+    wrap = JaxWrapper(env, weekends=False, verbose=False)
     tb = wrap.benchmark()
     assert tb > 0 and env.t_benchmark == tb
     obs, _ = wrap.reset()
@@ -158,31 +157,17 @@ def test_gym_adapter_brain_tumor():
 
 # -- fused Pallas kernels (interpret mode on CPU) -----------------------------
 
-# small domain so the interpret-mode while-loops stay fast: detection at
+# small domain so the while-loops stay fast: detection at
 # 5 mm, death at 20 mm, ~60-day episodes
 FAST = dict(T=80.0, dt=1.0, X=60.0, dx=1.0, t1_detection_radius=5.0,
             t1_death_radius=20.0, total_dosage=30.0)
 
 
-def _fast_pair(**kw):
-    from pdecontrolgym_tpu.envs.brain_tumor import BrainTumorConfig
+def _fast_env(**kw):
+    from pdecontrolgym_jax.envs.brain_tumor import BrainTumorConfig
 
-    xla = BrainTumorEnv(
-        BrainTumorConfig(dtype=jnp.float32, backend="xla", **FAST, **kw),
-        BrainTumorReward())
-    pls = BrainTumorEnv(
-        BrainTumorConfig(dtype=jnp.float32, backend="pallas", **FAST, **kw),
-        BrainTumorReward())
-    return xla, pls
-
-
-def _fast_ic_batch(env, B):
-    xs = jnp.linspace(0.0, env.config.X, env.config.nx)
-    # per-env widths so envs cross stages on different days
-    widths = jnp.linspace(0.2, 0.35, B)[:, None]
-    u0 = 0.8 * env.config.k * jnp.exp(-widths * xs[None, :] ** 2)
-    states, obs = jax.vmap(lambda u: env.init_from(u, 40))(u0)
-    return states, obs
+    return BrainTumorEnv(
+        BrainTumorConfig(dtype=jnp.float32, **FAST, **kw), BrainTumorReward())
 
 
 def _assert_state_close(a, b):
@@ -197,52 +182,13 @@ def _assert_state_close(a, b):
         )
 
 
-def test_fused_day_kernel_matches_vmap_step():
-    """The field-kernel step_batch (T2 scan + BED + FD update + T1 scan in
-    one aliased pass, stage machine shared with step()) vs vmap(step)
-    through a whole staged episode (growth -> therapy -> post/death), all
-    state fields + rewards + flags, from per-env ICs that desynchronize
-    the stage machine."""
-    xla, pls = _fast_pair()
-    assert pls._get_field_fn() is not False
-    sx, _ = _fast_ic_batch(xla, 4)
-    sp, _ = _fast_ic_batch(pls, 4)
-    dose = jnp.asarray([0.05, 0.2, 0.5, 1.0], jnp.float32)
-    for day in range(60):
-        sx, ox = xla.step_batch(sx, dose)
-        sp, op = pls.step_batch(sp, dose)
-        _assert_state_close(sp, sx)
-        np.testing.assert_allclose(np.asarray(op.reward),
-                                   np.asarray(ox.reward),
-                                   rtol=1e-5, atol=1e-4)
-        np.testing.assert_array_equal(np.asarray(op.terminated),
-                                      np.asarray(ox.terminated))
-        np.testing.assert_array_equal(np.asarray(op.truncated),
-                                      np.asarray(ox.truncated))
-
-
-def test_fused_kernel_gated_on_stock_reward():
-    from pdecontrolgym_tpu.core.base import RewardCtx
-    from pdecontrolgym_tpu.envs.brain_tumor import BrainTumorConfig
-
-    class CustomReward(BrainTumorReward):
-        def __call__(self, ctx: RewardCtx):
-            return -jnp.abs(ctx.u).sum()
-
-    env = BrainTumorEnv(
-        BrainTumorConfig(dtype=jnp.float32, backend="pallas", **FAST),
-        CustomReward())
-    with pytest.raises(ValueError, match="stock"):
-        env._kernel_eligible()
-
-
 def test_therapy_env_batched_matches_vmap():
-    """TherapyEnv init_batch/step_batch (in-kernel fast-forward while-loops)
-    vs the vmapped XLA wrapper: Growth hidden in init, Post-Therapy swept
-    in step, per-env desynchronized stages."""
-    xla, pls = _fast_pair()
-    tx = TherapyEnv(xla, t_benchmark=40)
-    tp = TherapyEnv(pls, t_benchmark=40)
+    """TherapyEnv init_batch/step_batch (batched fast-forward while-loops)
+    vs the vmapped per-env wrapper: Growth hidden in init, Post-Therapy
+    swept in step, per-env desynchronized stages."""
+    env = _fast_env()
+    tx = TherapyEnv(env, t_benchmark=40)
+    tp = TherapyEnv(env, t_benchmark=40)
     B = 4
     keys = jax.random.split(jax.random.key(0), B)
     sx, ox = jax.vmap(tx.init)(keys)
@@ -274,9 +220,9 @@ def test_wrapper_forwards_therapy_batch_protocol():
     import jax.numpy as jnp
     import numpy as np
 
-    from pdecontrolgym_tpu.envs.brain_tumor import (
+    from pdecontrolgym_jax.envs.brain_tumor import (
         BrainTumorConfig, BrainTumorEnv, DoseTherapyEnv)
-    from pdecontrolgym_tpu.envs.wrappers import FlatObsEnv
+    from pdecontrolgym_jax.envs.wrappers import FlatObsEnv
 
     base = BrainTumorEnv(
         BrainTumorConfig(dtype=jnp.float32, **FAST), BrainTumorReward())

@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.burgers import BurgersConfig, BurgersEnv
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.envs.burgers import BurgersConfig, BurgersEnv
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 
 def _env(**kw):
@@ -77,7 +77,7 @@ def test_godunov_flux_exact_riemann_properties():
 
 def test_gym_adapter_burgers():
     import gymnasium as gym
-    import pdecontrolgym_tpu  # noqa: F401
+    import pdecontrolgym_jax  # noqa: F401
 
     env = gym.make(
         "PDEControlGym-Burgers1D",

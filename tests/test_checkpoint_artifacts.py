@@ -5,7 +5,7 @@ These are the artifacts the walkthrough notebooks load (examples/
 make_notebooks.py) and the quality tables cite (docs/STATUS.md). Each test
 restores the msgpack into a freshly-initialized param template and evaluates a
 few episodes on CPU, asserting a loose-but-meaningful return floor (well above
-the zero/untrained policy, well below the TPU 50-episode table numbers, so
+the zero/untrained policy, well below the 50-episode table numbers, so
 episode-count noise cannot flake it).
 """
 
@@ -21,7 +21,7 @@ CKPT = os.path.join(os.path.dirname(__file__), "..", "examples", "checkpoints")
 
 
 def _load(name, template):
-    from pdecontrolgym_tpu.utils import load_params
+    from pdecontrolgym_jax.utils import load_params
 
     path = os.path.join(CKPT, name)
     if not os.path.exists(path):
@@ -32,11 +32,11 @@ def _load(name, template):
 def _rd_env(normalize=True):
     import dataclasses
 
-    from pdecontrolgym_tpu.envs.reaction_diffusion import (
+    from pdecontrolgym_jax.envs.reaction_diffusion import (
         ReactionDiffusionConfig,
         ReactionDiffusionEnv,
     )
-    from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+    from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
     cfg = ReactionDiffusionConfig(
         T=1.0, dt=1e-5, X=1.0, dx=5e-3, control_sample_rate=1e-3,
@@ -47,8 +47,8 @@ def _rd_env(normalize=True):
 
 
 def test_rd_ppo_checkpoint_controls():
-    from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-    from pdecontrolgym_tpu.eval import compare_controllers
+    from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_jax.eval import compare_controllers
 
     env = _rd_env()
     trainer = PPOTrainer(env, PPOConfig())
@@ -56,13 +56,13 @@ def test_rd_ppo_checkpoint_controls():
     params = _load("rd_ppo.msgpack", template)
     r = compare_controllers(env, {"ppo": trainer.policy(params)},
                             num_episodes=4, max_steps=1000)
-    # TPU 50-episode mean: 291.79; zero policy: -62.9
+    # 50-episode mean when trained: 291.79; zero policy: -62.9
     assert r["ppo"]["mean_return"] > 250.0
 
 
 def test_rd_sac_checkpoint_controls():
-    from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-    from pdecontrolgym_tpu.eval import compare_controllers
+    from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+    from pdecontrolgym_jax.eval import compare_controllers
 
     env = _rd_env()
     trainer = SACTrainer(env, SACConfig())
@@ -70,16 +70,16 @@ def test_rd_sac_checkpoint_controls():
     params = _load("rd_sac.msgpack", template)
     r = compare_controllers(env, {"sac": trainer.policy(params)},
                             num_episodes=4, max_steps=1000)
-    # TPU 50-episode mean: 276.00
+    # 50-episode mean when trained: 276.00
     assert r["sac"]["mean_return"] > 230.0
 
 
 def _transport_env(normalize=True):
     import dataclasses
 
-    from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-    from pdecontrolgym_tpu.envs.transport import TransportEnv
-    from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+    from pdecontrolgym_jax.envs.common import Boundary1DConfig
+    from pdecontrolgym_jax.envs.transport import TransportEnv
+    from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
     cfg = Boundary1DConfig(
         T=5.0, dt=1e-4, X=1.0, dx=1e-2, control_sample_rate=0.1,
@@ -91,8 +91,8 @@ def _transport_env(normalize=True):
 
 
 def test_transport_ppo_checkpoint_beats_backstepping_floor():
-    from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-    from pdecontrolgym_tpu.eval import compare_controllers
+    from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_jax.eval import compare_controllers
 
     env = _transport_env()
     trainer = PPOTrainer(env, PPOConfig())
@@ -100,14 +100,14 @@ def test_transport_ppo_checkpoint_beats_backstepping_floor():
     params = _load("transport_ppo.msgpack", template)
     r = compare_controllers(env, {"ppo": trainer.policy(params)},
                             num_episodes=4, max_steps=50)
-    # TPU 50-episode mean: 249.89 (backstepping: 243.40; the pre-recipe
+    # 50-episode mean when trained: 249.89 (backstepping: 243.40; the pre-recipe
     # plateau without the terminal bonus: ~15)
     assert r["ppo"]["mean_return"] > 200.0
 
 
 def test_transport_sac_checkpoint_controls():
-    from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-    from pdecontrolgym_tpu.eval import compare_controllers
+    from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+    from pdecontrolgym_jax.eval import compare_controllers
 
     env = _transport_env()
     trainer = SACTrainer(env, SACConfig())
@@ -115,15 +115,15 @@ def test_transport_sac_checkpoint_controls():
     params = _load("transport_sac.msgpack", template)
     r = compare_controllers(env, {"sac": trainer.policy(params)},
                             num_episodes=4, max_steps=50)
-    # TPU 50-episode mean: 221.85 (reference published SAC: 179.90)
+    # 50-episode mean when trained: 221.85 (reference published SAC: 179.90)
     assert r["sac"]["mean_return"] > 170.0
 
 
 def test_traffic_ppo_checkpoint_beats_uncontrolled():
-    from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-    from pdecontrolgym_tpu.envs import TanhBoxActionEnv, TransformObsEnv
-    from pdecontrolgym_tpu.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
-    from pdecontrolgym_tpu.rewards import TrafficARZReward
+    from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_jax.envs import TanhBoxActionEnv, TransformObsEnv
+    from pdecontrolgym_jax.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+    from pdecontrolgym_jax.rewards import TrafficARZReward
 
     cfg = TrafficARZConfig(simulation_type="outlet")
     env = TrafficARZEnv(cfg, TrafficARZReward())
@@ -150,18 +150,18 @@ def test_traffic_ppo_checkpoint_beats_uncontrolled():
         return rewards.sum()
 
     total = float(total_reward())
-    # TPU run: -204.57 (backstepping: -263.17); an untrained/zero outlet
+    # training run: -204.57 (backstepping: -263.17); an untrained/zero outlet
     # policy diverges far below -1000
     assert total > -350.0
 
 
 def _ns_env():
-    from pdecontrolgym_tpu.envs import FlatObsEnv, NavierStokesConfig, NavierStokesEnv
-    from pdecontrolgym_tpu.envs.navier_stokes import (
+    from pdecontrolgym_jax.envs import FlatObsEnv, NavierStokesConfig, NavierStokesEnv
+    from pdecontrolgym_jax.envs.navier_stokes import (
         freeze_boundary_condition,
         make_lid_target,
     )
-    from pdecontrolgym_tpu.rewards.ns import NSReward
+    from pdecontrolgym_jax.rewards.ns import NSReward
 
     bc = freeze_boundary_condition({
         "upper": ["Controllable", "Dirchilet"],
@@ -178,8 +178,8 @@ def _ns_env():
 
 
 def test_ns_ppo_checkpoint_tracks_lid():
-    from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-    from pdecontrolgym_tpu.eval import compare_controllers
+    from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_jax.eval import compare_controllers
 
     env = _ns_env()
     trainer = PPOTrainer(env, PPOConfig())
@@ -188,13 +188,13 @@ def test_ns_ppo_checkpoint_tracks_lid():
     params = _load("ns_ppo.msgpack", template)
     r = compare_controllers(env, {"ppo": trainer.policy(params)},
                             num_episodes=4, max_steps=200)
-    # TPU 50-episode mean: -5.40 (constant-lid oracle: -5.16, zero: -70.28)
+    # 50-episode mean when trained: -5.40 (constant-lid oracle: -5.16, zero: -70.28)
     assert r["ppo"]["mean_return"] > -20.0
 
 
 def test_ns_sac_checkpoint_tracks_lid():
-    from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-    from pdecontrolgym_tpu.eval import compare_controllers
+    from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+    from pdecontrolgym_jax.eval import compare_controllers
 
     env = _ns_env()
     trainer = SACTrainer(env, SACConfig(action_low=-4.0, action_high=4.0))
@@ -203,21 +203,21 @@ def test_ns_sac_checkpoint_tracks_lid():
     params = _load("ns_sac.msgpack", template)
     r = compare_controllers(env, {"sac": trainer.policy(params)},
                             num_episodes=4, max_steps=200)
-    # TPU 50-episode mean: -5.59 (constant-lid oracle: -5.16, zero: -70.28)
+    # 50-episode mean when trained: -5.59 (constant-lid oracle: -5.16, zero: -70.28)
     assert r["sac"]["mean_return"] > -20.0
 
 
 def test_brain_tumor_ppo_checkpoint_extends_survival():
-    from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-    from pdecontrolgym_tpu.envs import BrainTumorEnv, TherapyEnv
-    from pdecontrolgym_tpu.envs.brain_tumor import BrainTumorConfig
-    from pdecontrolgym_tpu.rewards.brain_tumor import BrainTumorReward
+    from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_jax.envs import BrainTumorEnv, TherapyEnv
+    from pdecontrolgym_jax.envs.brain_tumor import BrainTumorConfig
+    from pdecontrolgym_jax.rewards.brain_tumor import BrainTumorReward
 
     cfg = BrainTumorConfig(total_dosage=61.2)
     base = BrainTumorEnv(cfg, BrainTumorReward())
     tb = int(jax.jit(TherapyEnv(base).benchmark)(jax.random.key(0)))
 
-    from pdecontrolgym_tpu.envs.brain_tumor import DoseTherapyEnv
+    from pdecontrolgym_jax.envs.brain_tumor import DoseTherapyEnv
 
     env = DoseTherapyEnv(base, t_benchmark=tb)
     trainer = PPOTrainer(env, PPOConfig())
@@ -232,15 +232,15 @@ def test_brain_tumor_ppo_checkpoint_extends_survival():
         state, out = stepf(state, policy(obs[None])[0])
         obs = out.obs
         done = bool(out.terminated) or bool(out.truncated)
-    # TPU run: +73 days vs untreated; fixed protocols reach +67/+68
+    # training run: +73 days vs untreated; fixed protocols reach +67/+68
     assert int(state.simulation_days) - tb > 40
 
 
 def test_traffic_sac_checkpoint_beats_backstepping():
-    from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-    from pdecontrolgym_tpu.envs import TransformObsEnv
-    from pdecontrolgym_tpu.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
-    from pdecontrolgym_tpu.rewards import TrafficARZReward
+    from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+    from pdecontrolgym_jax.envs import TransformObsEnv
+    from pdecontrolgym_jax.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+    from pdecontrolgym_jax.rewards import TrafficARZReward
 
     cfg = TrafficARZConfig(simulation_type="outlet")
     env = TrafficARZEnv(cfg, TrafficARZReward())
@@ -269,21 +269,21 @@ def test_traffic_sac_checkpoint_beats_backstepping():
         return rewards.sum()
 
     total = float(total_reward())
-    # TPU run: -137.25 (PPO: -204.57, backstepping: -263.17)
+    # training run: -137.25 (PPO: -204.57, backstepping: -263.17)
     assert total > -263.0  # at least beats the analytic controller
 
 
 def test_brain_tumor_sac_checkpoint_extends_survival():
-    from pdecontrolgym_tpu.agents.sac import SACConfig, SACTrainer
-    from pdecontrolgym_tpu.envs import BrainTumorEnv, TherapyEnv
-    from pdecontrolgym_tpu.envs.brain_tumor import BrainTumorConfig
-    from pdecontrolgym_tpu.rewards.brain_tumor import BrainTumorReward
+    from pdecontrolgym_jax.agents.sac import SACConfig, SACTrainer
+    from pdecontrolgym_jax.envs import BrainTumorEnv, TherapyEnv
+    from pdecontrolgym_jax.envs.brain_tumor import BrainTumorConfig
+    from pdecontrolgym_jax.rewards.brain_tumor import BrainTumorReward
 
     cfg = BrainTumorConfig(total_dosage=61.2)
     base = BrainTumorEnv(cfg, BrainTumorReward())
     tb = int(jax.jit(TherapyEnv(base).benchmark)(jax.random.key(0)))
 
-    from pdecontrolgym_tpu.envs.brain_tumor import DoseTherapyEnv
+    from pdecontrolgym_jax.envs.brain_tumor import DoseTherapyEnv
 
     env = DoseTherapyEnv(base, t_benchmark=tb)
     trainer = SACTrainer(env, SACConfig())
@@ -299,6 +299,6 @@ def test_brain_tumor_sac_checkpoint_extends_survival():
         obs = out.obs
         done = bool(out.terminated) or bool(out.truncated)
     survival = int(state.simulation_days)
-    # TPU run: +74 days vs the 363-day untreated baseline; fixed protocols
+    # training run: +74 days vs the 363-day untreated baseline; fixed protocols
     # reach +67/+68
     assert survival - tb > 40

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import pytest
 from jax.experimental import checkify
 
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.reaction_diffusion import (
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.reaction_diffusion import (
     ReactionDiffusionConfig,
     ReactionDiffusionEnv,
 )
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
-from pdecontrolgym_tpu.utils.debug import cfl_report, checked_step, checked_step_batch
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.utils.debug import cfl_report, checked_step, checked_step_batch
 
 
 def _unstable_rd_env():
@@ -79,7 +79,7 @@ def test_cfl_report_clean_configs():
     ok = cfl_report(ReactionDiffusionConfig(T=1.0, dt=1e-5, dx=5e-3))
     assert all(f.ok for f in ok)
 
-    from pdecontrolgym_tpu.envs.navier_stokes import NavierStokesConfig
+    from pdecontrolgym_jax.envs.navier_stokes import NavierStokesConfig
 
     ok = cfl_report(NavierStokesConfig())
     assert all(f.ok for f in ok)

@@ -4,9 +4,9 @@ import numpy as np
 import gymnasium as gym
 import pytest
 
-import pdecontrolgym_tpu  # noqa: F401  (registers env IDs)
-from pdecontrolgym_tpu.compat import registration
-from pdecontrolgym_tpu.rewards import TunedReward1D
+import pdecontrolgym_jax  # noqa: F401  (registers env IDs)
+from pdecontrolgym_jax.compat import registration
+from pdecontrolgym_jax.rewards import TunedReward1D
 
 
 def _params(T=1.0, dt=1e-4, dx=1e-2):
@@ -98,7 +98,7 @@ def test_device_history_matches_host_history():
     host read per step); it must expose exactly the same ``env.u`` as the
     host-buffer mode used for legacy rewards — including past termination,
     where the frozen interval tail lands in the buffer's margin rows."""
-    from pdecontrolgym_tpu.compat.adapter import TransportPDE1D
+    from pdecontrolgym_jax.compat.adapter import TransportPDE1D
 
     mk = lambda: TransportPDE1D(**_params())
     fast, slow = mk(), mk()
@@ -118,7 +118,7 @@ def test_device_history_matches_host_history():
 
 def test_legacy_reference_reward_object_through_adapter():
     """Pass the REFERENCE's own TunedReward1D instance (ABC-style signature,
-    full-history indexing) through the TPU adapter: rewards must match the
+    full-history indexing) through the Gymnasium adapter: rewards must match the
     native path within float tolerance."""
     import sys
     sys.path.insert(0, "tests")
@@ -142,10 +142,10 @@ def test_legacy_reference_reward_object_through_adapter():
 
 
 def test_vector_env_adapter():
-    from pdecontrolgym_tpu.compat.vector import PDEVectorEnv
-    from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-    from pdecontrolgym_tpu.envs.transport import TransportEnv
-    from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+    from pdecontrolgym_jax.compat.vector import PDEVectorEnv
+    from pdecontrolgym_jax.envs.common import Boundary1DConfig
+    from pdecontrolgym_jax.envs.transport import TransportEnv
+    from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
     cfg = Boundary1DConfig(T=0.05, dt=1e-4, X=1.0, dx=1e-2,
                            control_sample_rate=0.01)
@@ -233,11 +233,11 @@ def test_gymnasium_official_conformance_checker(env_id):
 
 def test_vector_env_non_square_ns_obs_shape():
     import jax.numpy as jnp
-    from pdecontrolgym_tpu.compat.vector import PDEVectorEnv
-    from pdecontrolgym_tpu.envs.navier_stokes import (
+    from pdecontrolgym_jax.compat.vector import PDEVectorEnv
+    from pdecontrolgym_jax.envs.navier_stokes import (
         NavierStokesConfig, NavierStokesEnv, freeze_boundary_condition,
     )
-    from pdecontrolgym_tpu.rewards.ns import NSReward
+    from pdecontrolgym_jax.rewards.ns import NSReward
 
     bc = freeze_boundary_condition({
         "upper": ["Controllable", "Dirchilet"],
@@ -258,12 +258,12 @@ def test_vector_env_non_square_ns_obs_shape():
 
 
 def test_ns_adapter_fast_solver_kwargs():
-    """The NS Gym adapter accepts the ADDITIVE TPU kwargs (pressure_solver /
-    pressure_layout / dtype / step_backend) after the reference signature;
+    """The NS Gym adapter accepts the ADDITIVE kwargs (pressure_solver /
+    pressure_layout / dtype) after the reference signature;
     defaults still reproduce the reference's f64 Jacobi configuration."""
     import numpy as np
 
-    from pdecontrolgym_tpu.compat.adapter import NavierStokes2D
+    from pdecontrolgym_jax.compat.adapter import NavierStokes2D
 
     ic = lambda X: (np.ones_like(X), np.zeros_like(X), np.zeros_like(X))
     env = NavierStokes2D(

@@ -4,8 +4,9 @@ Everything else multi-device in this suite runs on a single-process virtual
 mesh; this test spawns TWO separate Python processes (coordinator + worker,
 Gloo CPU collectives over localhost) and drives the sharded PPO train step
 over the global mesh end-to-end — the initialize -> multihost_env_mesh ->
-shard_map -> pmean chain across a process boundary. On a TPU pod the same
-program rides ICI/DCN (parallel/mesh.py).
+shard_map -> pmean chain across a process boundary. Processes are spawned
+on the CPU only: on a GPU machine each process would reserve most of the
+card's memory, so the card runs one process.
 
 The demo prints one RESULT line per process; the coordinator asserts the
 parameter checksums agree and prints the OK line this test checks.
@@ -32,6 +33,8 @@ def test_two_process_distributed_training(algo):
     # the demo pins its own platform/device-count env; drop the suite's
     # 8-virtual-device XLA_FLAGS so each process gets its own 2
     env.pop("XLA_FLAGS", None)
+    # the demo imports the package from the checkout, which is not installed
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "examples", "multihost_demo.py"),
          "--spawn", "2", "--local-devices", "2", "--iters", "2",

@@ -6,12 +6,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.navier_stokes import (
+from pdecontrolgym_jax.envs.navier_stokes import (
     NavierStokesConfig,
     NavierStokesEnv,
     freeze_boundary_condition,
 )
-from pdecontrolgym_tpu.rewards.ns import NSReward
+from pdecontrolgym_jax.rewards.ns import NSReward
 
 from reference_loader import load_reference_module
 
@@ -56,7 +56,7 @@ def _ref_env(U_ref, action_ref, iters=2000):
     )
 
 
-def _tpu_env(U_ref, action_ref, iters=2000):
+def _jax_env(U_ref, action_ref, iters=2000):
     cfg = NavierStokesConfig(
         T=T, dt=DT, X=1.0, dx=DX, Y=1.0, dy=DY, action_dim=1,
         maximum_pressure_iteration=iters,
@@ -72,7 +72,7 @@ def test_open_loop_parity(iters):
     ref = _ref_env(U_ref, action_ref, iters)
     robs, _ = ref.reset()
 
-    env = _tpu_env(U_ref, action_ref, iters)
+    env = _jax_env(U_ref, action_ref, iters)
     u0, v0, p0 = _ic()
     step = jax.jit(env.step)
     state, tobs = env.init_from(u0, v0, p0)
@@ -94,7 +94,7 @@ def test_open_loop_parity(iters):
 def test_stability_guard_matches_reference():
     U_ref, action_ref = _refs()
     with pytest.raises(RuntimeError, match="Stability is not guarenteed"):
-        _tpu_env(U_ref, action_ref).__class__(
+        _jax_env(U_ref, action_ref).__class__(
             NavierStokesConfig(
                 dt=0.1, boundary_condition=freeze_boundary_condition(BC)
             ),
@@ -104,8 +104,8 @@ def test_stability_guard_matches_reference():
 
 def test_gym_adapter_matches_reference_and_exposes_solver():
     import gymnasium as gym
-    import pdecontrolgym_tpu  # noqa: F401
-    from pdecontrolgym_tpu.rewards import ns as ns_rewards
+    import pdecontrolgym_jax  # noqa: F401
+    from pdecontrolgym_jax.rewards import ns as ns_rewards
 
     U_ref, action_ref = _refs()
     env = gym.make(
@@ -136,7 +136,7 @@ def test_gym_adapter_matches_reference_and_exposes_solver():
 
 def test_batched_vmap_ns():
     U_ref, action_ref = _refs()
-    env = _tpu_env(U_ref, action_ref, iters=40)
+    env = _jax_env(U_ref, action_ref, iters=40)
     B = 4
     keys = jax.random.split(jax.random.key(0), B)
     state, obs = jax.jit(jax.vmap(env.init))(keys)
@@ -148,7 +148,7 @@ def test_batched_vmap_ns():
 
 
 def test_flat_pressure_layout_matches_grid():
-    from pdecontrolgym_tpu.ops.poisson2d import jacobi_pressure, jacobi_pressure_flat
+    from pdecontrolgym_jax.ops.poisson2d import jacobi_pressure, jacobi_pressure_flat
 
     rng = np.random.default_rng(7)
     u = rng.normal(size=(3, 21, 21))
@@ -160,7 +160,7 @@ def test_flat_pressure_layout_matches_grid():
 
     # full env step equality under the flat layout
     U_ref, action_ref = _refs()
-    env_g = _tpu_env(U_ref, action_ref, iters=80)
+    env_g = _jax_env(U_ref, action_ref, iters=80)
     import dataclasses
     env_f = NavierStokesEnv(
         dataclasses.replace(env_g.config, pressure_layout="flat"),
@@ -179,7 +179,7 @@ def test_flat_pressure_layout_matches_grid():
 def test_matpow_pressure_matches_jacobi(iters):
     """The precomputed affine-map solver reproduces the exact K-sweep Jacobi
     result (finite-iteration truncation error included) to ~1e-12 at f64."""
-    from pdecontrolgym_tpu.ops.poisson2d import (
+    from pdecontrolgym_jax.ops.poisson2d import (
         jacobi_pressure,
         matpow_pressure,
         matpow_pressure_setup,
@@ -202,7 +202,7 @@ def test_matpow_env_matches_parity_mode():
     import dataclasses
 
     U_ref, action_ref = _refs()
-    env_j = _tpu_env(U_ref, action_ref, iters=2000)
+    env_j = _jax_env(U_ref, action_ref, iters=2000)
     env_m = NavierStokesEnv(
         dataclasses.replace(env_j.config, pressure_solver="matpow"),
         env_j.reward, U_ref, action_ref,
@@ -228,7 +228,7 @@ def test_direct_pressure_matches_converged_jacobi():
     Jacobi sweep: it matches a (effectively) converged Jacobi run to ~1e-10
     and is invariant under one further sweep (modulo the singular constant
     mode, which only drifts the mean — ∇p is what the corrector uses)."""
-    from pdecontrolgym_tpu.ops.poisson2d import (
+    from pdecontrolgym_jax.ops.poisson2d import (
         direct_pressure,
         direct_pressure_setup,
         jacobi_pressure,
@@ -260,7 +260,7 @@ def test_direct_solver_env_trajectory_close_to_parity_mode():
     import dataclasses
 
     U_ref, action_ref = _refs()
-    env_j = _tpu_env(U_ref, action_ref, iters=2000)
+    env_j = _jax_env(U_ref, action_ref, iters=2000)
     env_d = NavierStokesEnv(
         dataclasses.replace(env_j.config, pressure_solver="direct"),
         env_j.reward, U_ref, action_ref,
@@ -279,3 +279,84 @@ def test_direct_solver_env_trajectory_close_to_parity_mode():
     assert abs(float(outd.reward) - float(outj.reward)) < 1e-3 * max(
         1.0, abs(float(outj.reward))
     )
+
+
+NEUMANN_BC = {
+    "upper": ["Controllable", "Dirchilet"],
+    "lower": ["Neumann", "Neumann"],
+    "left": ["Neumann", "Dirchilet"],
+    "right": ["Dirchilet", "Neumann"],
+}
+
+
+def _direct_env(bc, n=16):
+    cfg = NavierStokesConfig(
+        T=0.02, dt=1e-3, X=1.0, dx=1.0 / (n - 1), Y=1.0, dy=1.0 / (n - 1),
+        viscosity=0.05, dtype=jnp.float32, pressure_solver="direct",
+        boundary_condition=freeze_boundary_condition(bc),
+    )
+    rng = np.random.default_rng(3)
+    U_ref = rng.normal(size=(cfg.nt, n, n, 2)).astype(np.float32) * 0.1
+    return NavierStokesEnv(cfg, NSReward(0.1), U_ref,
+                           np.linspace(1.0, 2.0, cfg.nt).astype(np.float32))
+
+
+@pytest.mark.parametrize("bc", [BC, NEUMANN_BC], ids=["dirichlet", "neumann"])
+def test_step_batch_matches_vmap_step(bc):
+    """The batched step (shared tracking-target row) equals vmap(step) for
+    both boundary-condition families."""
+    env = _direct_env(bc)
+    keys = jax.random.split(jax.random.key(4), 3)
+    sb, _ = jax.vmap(env.init)(keys)
+    sv = sb
+    actions = jnp.asarray([[0.5], [1.5], [-1.0]], jnp.float32)
+    for _ in range(3):
+        sb, ob = jax.jit(env.step_batch)(sb, actions)
+        sv, ov = jax.jit(jax.vmap(env.step))(sv, actions)
+        for a, b in zip(jax.tree_util.tree_leaves((sb, ob.obs, ob.reward)),
+                        jax.tree_util.tree_leaves((sv, ov.obs, ov.reward))):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(np.asarray(ob.terminated),
+                                      np.asarray(ov.terminated))
+
+
+def test_grad_through_batched_step():
+    """jax.grad flows through the batched XLA step (the differentiable path
+    ns_gradient_optimization uses) and equals the gradient through
+    vmap(step)."""
+    env = _direct_env(BC)
+    keys = jax.random.split(jax.random.key(5), 2)
+    s0, _ = jax.vmap(env.init)(keys)
+
+    def loss(actions, step):
+        s, out = step(s0, actions)
+        s, out2 = step(s, actions)
+        return out.reward.sum() + out2.reward.sum() + jnp.sum(s.u ** 2)
+
+    a = jnp.asarray([[1.0], [0.3]], jnp.float32)
+    g_batch = jax.grad(loss)(a, env.step_batch)
+    g_vmap = jax.grad(loss)(a, jax.vmap(env.step))
+    assert np.isfinite(np.asarray(g_batch)).all()
+    assert np.abs(np.asarray(g_batch)).sum() > 0
+    np.testing.assert_allclose(np.asarray(g_batch), np.asarray(g_vmap),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_ppo_train_step_on_ns():
+    """One PPO train step with the policy consuming flattened NS frames."""
+    from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_jax.envs.wrappers import FlatObsEnv
+
+    env = FlatObsEnv(_direct_env(BC))
+    trainer = PPOTrainer(env, PPOConfig(num_envs=4, num_steps=4,
+                                        num_epochs=1, num_minibatches=2,
+                                        hidden=(16, 16)))
+    runner = trainer.init(jax.random.key(0))
+    p0 = jax.tree_util.tree_leaves(runner.params)
+    runner, metrics = trainer.make_train_step()(runner)
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["mean_reward"]))
+    p1 = jax.tree_util.tree_leaves(runner.params)
+    assert any(not np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(p0, p1))

@@ -1,4 +1,5 @@
-"""Fused Pallas interval kernels vs the XLA scan path (interpret mode on CPU)."""
+"""The Pallas interval kernel (ops/pallas1d) vs the XLA scan path, run in the
+Pallas interpreter on the CPU (backend="interpret")."""
 
 import dataclasses
 
@@ -8,19 +9,19 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.burgers import BurgersConfig, BurgersEnv
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.reaction_diffusion import (
+from pdecontrolgym_jax.envs.burgers import BurgersConfig, BurgersEnv
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.reaction_diffusion import (
     ReactionDiffusionConfig,
     ReactionDiffusionEnv,
 )
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 
 def _pair(env_cls, cfg, reward):
     xla = env_cls(dataclasses.replace(cfg, backend="xla"), reward)
-    pls = env_cls(dataclasses.replace(cfg, backend="pallas"), reward)
+    pls = env_cls(dataclasses.replace(cfg, backend="interpret"), reward)
     return xla, pls
 
 
@@ -79,35 +80,34 @@ def test_reaction_diffusion_pallas_matches_xla(control_type):
     _compare(*_pair(ReactionDiffusionEnv, cfg, reward), steps=4)
 
 
-@pytest.mark.parametrize("elimination", ["kernel", "xla"])
+@pytest.mark.parametrize("batch", [8, 37])
 @pytest.mark.parametrize("theta,control_type", [
     (1.0, "Dirchilet"),   # backward Euler: rhs stencil statically dropped
     (0.5, "Dirchilet"),   # Crank-Nicolson
     (0.5, "Neumann"),     # state-dependent boundary read in-kernel
 ])
 def test_reaction_diffusion_implicit_pcr_pallas_matches_xla(
-        theta, control_type, elimination):
-    """The VMEM-resident PCR interval kernel (coefficient elimination hoisted
-    to once per interval, 9-step rhs-only reduction per sub-step) vs the XLA
-    pcr solver — same θ-scheme semantics, fp-association tolerance. Covers
-    both elimination placements: in-kernel scratch-staged (round-5 default)
-    and the XLA factor-block fallback (pcr_elimination='xla')."""
+        theta, control_type, batch):
+    """The PCR interval kernel (coefficient elimination hoisted to once per
+    interval, 9-step rhs-only reduction per sub-step) vs the XLA pcr solver
+    — same θ-scheme semantics, fp-association tolerance. A batch of 37 is
+    not a multiple of the kernel's env tile, so the padded rows are
+    exercised too."""
     cfg = ReactionDiffusionConfig(
         T=0.02, dt=4e-4, X=1.0, dx=1.0 / 256, control_sample_rate=4e-3,
         scheme="implicit", theta=theta, implicit_solver="pcr",
-        control_type=control_type, pcr_elimination=elimination,
+        control_type=control_type,
     )
     reward = TunedReward1D(int(round(cfg.T / cfg.dt)), -1e3, 3e2)
     xla, pls = _pair(ReactionDiffusionEnv, cfg, reward)
-    assert pls._pallas_spec() is not None
+    assert pls._kernel_spec() is not None
     # the kernel's folded rhs diagonal + identity-row pads reassociate a few
     # f32 ulps per solve vs the XLA pcr (where-guarded shifts, unfolded rhs)
-    _compare(xla, pls, steps=4, obs_tol=2e-5)
+    _compare(xla, pls, B=batch, steps=4, obs_tol=2e-5)
 
 
 def test_reaction_diffusion_implicit_kernel_matches_thomas():
-    """Solver-independence check: the in-kernel-elimination PCR interval
-    kernel against the XLA THOMAS sweeps (a structurally different O(n)
+    """Solver-independence check: the PCR interval kernel against the XLA THOMAS sweeps (a structurally different O(n)
     algorithm) — pins the solve itself, not just the PCR formulation."""
     kw = dict(T=0.02, dt=4e-4, X=1.0, dx=1.0 / 256,
               control_sample_rate=4e-3, scheme="implicit", theta=0.5)
@@ -117,7 +117,7 @@ def test_reaction_diffusion_implicit_kernel_matches_thomas():
                                 backend="xla"), reward)
     pls = ReactionDiffusionEnv(
         ReactionDiffusionConfig(**kw, implicit_solver="pcr",
-                                backend="pallas"), reward)
+                                backend="interpret"), reward)
     _compare(thomas_env, pls, steps=4, obs_tol=2e-5)
 
 
@@ -142,7 +142,7 @@ def test_implicit_thomas_dense_stay_xla():
         env = ReactionDiffusionEnv(
             cfg, TunedReward1D(int(round(cfg.T / cfg.dt)))
         )
-        assert env._pallas_spec() is None
+        assert env._kernel_spec() is None
 
 
 def test_burgers_pallas_matches_xla():
@@ -155,7 +155,7 @@ def test_burgers_pallas_matches_xla():
 
 
 def test_burgers_transposed_terminal_interval():
-    # 2 full intervals then a terminal one: exercises the transposed kernel's
+    # 2 full intervals then a terminal one: exercises the kernel's
     # masked path (per-sub-step freeze of finished envs) and its t bookkeeping
     cfg = BurgersConfig(
         T=0.025, dt=1e-4, X=1.0, dx=1.0 / 256, control_sample_rate=0.01,
@@ -167,7 +167,7 @@ def test_burgers_transposed_terminal_interval():
 
 def test_burgers_transposed_neumann_boundary():
     # Neumann control: boundary varies per sub-step -> non-constant bsum
-    # accumulation inside the transposed kernel
+    # accumulation inside the kernel
     cfg = BurgersConfig(
         T=0.1, dt=1e-4, X=1.0, dx=1.0 / 256, control_sample_rate=0.01,
         viscosity=1e-3, control_type="Neumann",
@@ -177,9 +177,8 @@ def test_burgers_transposed_neumann_boundary():
 
 
 def test_burgers_unaligned_state_dim():
-    # nx=100 is not a multiple of 8: the transposed kernel zero-pads the state
-    # rows to 104 and the update re-zeroes the row its flux difference leaks
-    # into, so norms/rewards stay exact
+    # nx=100 is not a power of two: the kernel zero-pads the state columns
+    # to 128 and keeps the pads zero, so norms/rewards stay exact
     cfg = BurgersConfig(
         T=0.1, dt=1e-4, X=1.0, dx=1.0 / 100, control_sample_rate=0.01,
         viscosity=1e-3,
@@ -189,10 +188,11 @@ def test_burgers_unaligned_state_dim():
 
 
 def test_pallas_fallback_paths():
-    # implicit scheme cannot use the fused kernel -> silently uses vmap/XLA
+    # implicit scheme at a non-power-of-two width (201 points, padded to
+    # 256 columns) through the kernel's PCR body
     cfg = ReactionDiffusionConfig(
         T=0.01, dt=1e-4, X=1.0, dx=5e-3, control_sample_rate=1e-3,
-        scheme="implicit", backend="pallas",
+        scheme="implicit", backend="interpret",
     )
     env = ReactionDiffusionEnv(cfg, TunedReward1D(100))
     keys = jax.random.split(jax.random.key(0), 4)
@@ -202,11 +202,11 @@ def test_pallas_fallback_paths():
 
 
 def test_rollout_uses_step_batch():
-    from pdecontrolgym_tpu.parallel.rollout import rollout
+    from pdecontrolgym_jax.parallel.rollout import rollout
 
     cfg = Boundary1DConfig(
         T=0.05, dt=1e-4, X=1.0, dx=1.0 / 128, control_sample_rate=0.01,
-        backend="pallas",
+        backend="interpret",
     )
     env = TransportEnv(cfg, TunedReward1D(500, -1e3, 3e2))
     (state, obs), outs = jax.jit(

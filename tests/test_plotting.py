@@ -7,7 +7,7 @@ matplotlib.use("Agg")
 
 import numpy as np
 
-from pdecontrolgym_tpu.utils import ns_fields, spacetime_1d, surface_1d
+from pdecontrolgym_jax.utils import ns_fields, spacetime_1d, surface_1d
 
 
 def test_surface_1d_renders():
@@ -40,7 +40,7 @@ def test_csv_loaders_match_reference(tmp_path):
     """load_csv/load_csv_all parse TB-exported scalar CSVs with the same
     contract as the reference's figure pipeline
     (examples/transportPDE/utils.py:58-88)."""
-    from pdecontrolgym_tpu.utils.plotting import load_csv, load_csv_all
+    from pdecontrolgym_jax.utils.plotting import load_csv, load_csv_all
 
     p = tmp_path / "run.csv"
     p.write_text(
@@ -58,8 +58,8 @@ def test_csv_loaders_match_reference(tmp_path):
 
 
 def test_jsonl_loader_and_reward_curves(tmp_path):
-    from pdecontrolgym_tpu.utils import MetricsLogger
-    from pdecontrolgym_tpu.utils.plotting import load_jsonl, reward_curves
+    from pdecontrolgym_jax.utils import MetricsLogger
+    from pdecontrolgym_jax.utils.plotting import load_jsonl, reward_curves
 
     logger = MetricsLogger(str(tmp_path), tensorboard=False)
     for i in range(12):

@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.parallel.mesh import env_mesh
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.parallel.mesh import env_mesh
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 
 def _env():
@@ -57,7 +57,7 @@ def test_ppo_sharded_eight_devices():
 
 
 def test_rollout_engine_autoreset():
-    from pdecontrolgym_tpu.parallel.rollout import rollout
+    from pdecontrolgym_jax.parallel.rollout import rollout
 
     env = _env()
     # zero policy; 0.5s episode at 0.05 control interval = 10 steps/episode

@@ -1,4 +1,4 @@
-"""Reaction-diffusion parity (explicit FTCS vs reference) and the TPU-only
+"""Reaction-diffusion parity (explicit FTCS vs reference) and the implicit
 implicit tridiagonal path (accuracy vs the heat-equation analytic solution)."""
 
 import numpy as np
@@ -7,13 +7,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.reaction_diffusion import (
+from pdecontrolgym_jax.envs.reaction_diffusion import (
     ReactionDiffusionConfig,
     ReactionDiffusionEnv,
 )
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
-from pdecontrolgym_tpu.agents.backstepping import parabolic_control, parabolic_kernel
-from pdecontrolgym_tpu.ops.tridiag import pcr, thomas
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.agents.backstepping import parabolic_control, parabolic_kernel
+from pdecontrolgym_jax.ops.tridiag import pcr, thomas
 
 from reference_loader import load_reference_module
 
@@ -42,7 +42,7 @@ def _ref_env(u0, control_type="Dirchilet"):
     )
 
 
-def _tpu_env(control_type="Dirchilet", **kw):
+def _jax_env(control_type="Dirchilet", **kw):
     cfg = ReactionDiffusionConfig(
         T=T, dt=DT, X=X, dx=DX, control_type=control_type,
         sensing_type="Neumann", limit_pde_state_size=True,
@@ -59,7 +59,7 @@ def test_explicit_parity(control_type):
 
     ref = _ref_env(u0, control_type)
     robs, _ = ref.reset()
-    env = _tpu_env(control_type)
+    env = _jax_env(control_type)
     step = jax.jit(env.step)
     state, tobs = env.init_from(u0, _beta(NX))
     np.testing.assert_allclose(robs, np.asarray(tobs), atol=1e-6)
@@ -87,19 +87,19 @@ def test_closed_loop_goursat_backstepping_stabilizes_and_matches():
         obs, r, term, trunc, _ = ref.step(np.float32(a))
         ref_total += r
 
-    env = _tpu_env()
+    env = _jax_env()
     step = jax.jit(env.step)
     state, tobs = env.init_from(u0, _beta(NX))
-    tpu_total, done = 0.0, False
+    jax_total, done = 0.0, False
     while not done:
         a = parabolic_control(jnp.asarray(krow, jnp.float32), tobs, DX)
         state, out = step(state, a)
         tobs = out.obs
-        tpu_total += float(out.reward)
+        jax_total += float(out.reward)
         done = bool(out.terminated) or bool(out.truncated)
 
     np.testing.assert_allclose(np.asarray(tobs), obs, atol=2e-3 * max(1.0, np.abs(obs).max()))
-    assert abs(ref_total - tpu_total) < 0.05 * max(1.0, abs(ref_total))
+    assert abs(ref_total - jax_total) < 0.05 * max(1.0, abs(ref_total))
 
 
 def test_implicit_matches_heat_equation_analytics():

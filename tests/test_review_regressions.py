@@ -8,20 +8,20 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.rewards.traffic import TrafficARZReward
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.rewards.traffic import TrafficARZReward
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 from reference_loader import load_reference_module
 
 
 def test_pallas_handles_non_multiple_batch():
     cfg = Boundary1DConfig(T=0.02, dt=1e-4, X=1.0, dx=1.0 / 128,
-                           control_sample_rate=0.01, backend="pallas")
+                           control_sample_rate=0.01, backend="interpret")
     env = TransportEnv(cfg, TunedReward1D(200, lookback=5))
-    B = 768  # not a multiple of the 512 default tile
+    B = 770  # not a multiple of the kernel's env tile
     keys = jax.random.split(jax.random.key(0), B)
     state, obs = jax.vmap(env.init)(keys)
     state, out = jax.jit(lambda s, a: env.step_batch(s, a))(state, jnp.zeros(B))
@@ -29,13 +29,12 @@ def test_pallas_handles_non_multiple_batch():
 
 
 def test_pallas_interpret_batch_not_multiple_of_tile():
-    # round-2 review: the interpret branch floor-divided the grid (B // tb)
-    # without padding, silently never computing envs beyond tb*floor(B/tb) —
-    # B=200 left envs 128..199 as NaN/garbage while XLA returned finite
+    # the grid must pad the batch up to whole tiles: floor-dividing it
+    # (B // tb) would silently never compute the last partial tile
     cfg = Boundary1DConfig(T=0.02, dt=1e-4, X=1.0, dx=1.0 / 128,
-                           control_sample_rate=0.01, backend="pallas")
+                           control_sample_rate=0.01, backend="interpret")
     env = TransportEnv(cfg, TunedReward1D(200, lookback=5))
-    B = 200  # not a multiple of the 128 tile
+    B = 200  # not a multiple of the kernel's env tile
     keys = jax.random.split(jax.random.key(0), B)
     state, obs = jax.vmap(env.init)(keys)
     state, out = jax.jit(lambda s, a: env.step_batch(s, a))(
@@ -66,7 +65,7 @@ def test_traffic_non_divisible_grid_shapes_consistent():
 
 def test_adapter_history_buffer_populated_without_legacy_reward():
     import gymnasium as gym
-    import pdecontrolgym_tpu  # noqa: F401
+    import pdecontrolgym_jax  # noqa: F401
 
     env = gym.make(
         "PDEControlGym-TransportPDE1D",
@@ -105,7 +104,7 @@ def test_short_interval_lookback_matches_reference_zero_wrap():
     )
     ref.reset()
 
-    from pdecontrolgym_tpu.envs.reaction_diffusion import (
+    from pdecontrolgym_jax.envs.reaction_diffusion import (
         ReactionDiffusionConfig,
         ReactionDiffusionEnv,
     )
@@ -171,10 +170,10 @@ def test_autoreset_gate_paths_equivalent():
     import jax.numpy as jnp
     import numpy as np
 
-    from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-    from pdecontrolgym_tpu.envs.transport import TransportEnv
-    from pdecontrolgym_tpu.parallel.rollout import batch_init, batch_step
-    from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+    from pdecontrolgym_jax.envs.common import Boundary1DConfig
+    from pdecontrolgym_jax.envs.transport import TransportEnv
+    from pdecontrolgym_jax.parallel.rollout import batch_init, batch_step
+    from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
     cfg = Boundary1DConfig(T=0.3, dt=1e-3, X=1.0, dx=1.0 / 32,
                            control_sample_rate=1e-2)
@@ -230,8 +229,8 @@ def test_bench_neuron_timed_scalar_depends_on_physics():
     finding). The bench now folds the final observation into the scalar;
     this pins the property: different rollout keys must produce different
     timed values (a DCE'd program returns a key-independent constant)."""
-    from pdecontrolgym_tpu.envs.neuron import NeuronConfig, NeuronEnv
-    from pdecontrolgym_tpu.parallel.rollout import rollout
+    from pdecontrolgym_jax.envs.neuron import NeuronConfig, NeuronEnv
+    from pdecontrolgym_jax.parallel.rollout import rollout
 
     env = NeuronEnv(NeuronConfig(dtype=jnp.float32))  # NO reward attached
 
@@ -254,8 +253,8 @@ def test_noise_gate_sees_through_wrappers():
     """The PPO/SAC fused-rollout gate must detect noise_fn ANYWHERE in the
     wrapper chain (review finding: checking only the outermost env silently
     dropped sensing noise for wrapped noisy envs)."""
-    from pdecontrolgym_tpu.envs import TransformObsEnv
-    from pdecontrolgym_tpu.parallel.rollout import env_noise_fn
+    from pdecontrolgym_jax.envs import TransformObsEnv
+    from pdecontrolgym_jax.parallel.rollout import env_noise_fn
 
     noise = lambda obs, key: obs + jax.random.normal(key, obs.shape) * 1e-3
     cfg = Boundary1DConfig(T=0.05, dt=1e-3, X=1.0, dx=1.0 / 32,
@@ -265,7 +264,7 @@ def test_noise_gate_sees_through_wrappers():
     assert env_noise_fn(wrapped) is noise
     assert env_noise_fn(TransportEnv(cfg, TunedReward1D(cfg.nt - 1))) is None
 
-    from pdecontrolgym_tpu.agents.ppo import PPOConfig, PPOTrainer
+    from pdecontrolgym_jax.agents.ppo import PPOConfig, PPOTrainer
 
     trainer = PPOTrainer(wrapped, PPOConfig(num_envs=4, num_steps=2,
                                             num_epochs=1, num_minibatches=1,
@@ -283,7 +282,7 @@ def test_noise_gate_sees_through_wrappers():
 def test_adapter_fast_path_env_u_is_writable():
     """env.u must stay a mutable numpy array on the device-history fast path
     (review finding: the raw jax-array view was read-only)."""
-    from pdecontrolgym_tpu.compat.adapter import TransportPDE1D
+    from pdecontrolgym_jax.compat.adapter import TransportPDE1D
 
     env = TransportPDE1D(
         T=0.05, dt=1e-3, X=1.0, dx=1.0 / 32, control_sample_rate=1e-2,
@@ -303,12 +302,12 @@ def test_ns_lockstep_default_poisons_mixed_time_batches():
     """lockstep_targets=True computes rewards from one shared target row;
     hand-built mixed-time batches must fail LOUD (NaN), not silently reward
     against the wrong row (review finding)."""
-    from pdecontrolgym_tpu.envs.navier_stokes import (
+    from pdecontrolgym_jax.envs.navier_stokes import (
         NavierStokesConfig,
         NavierStokesEnv,
         freeze_boundary_condition,
     )
-    from pdecontrolgym_tpu.rewards.ns import NSReward
+    from pdecontrolgym_jax.rewards.ns import NSReward
 
     n = 8
     bc = freeze_boundary_condition({

@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.rewards.norm import NormReward
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.rewards.norm import NormReward
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 
 def _env(reward, **kw):
@@ -58,7 +58,7 @@ def test_norm_reward_terminate_truncate_values():
 
 def test_l1_linf_norms():
     u = jnp.asarray([[3.0, -4.0, 0.0]])
-    from pdecontrolgym_tpu.rewards.norm import _vec_norm
+    from pdecontrolgym_jax.rewards.norm import _vec_norm
 
     assert float(_vec_norm(u, "1")[0]) == 7.0
     assert float(_vec_norm(u, "2")[0]) == 5.0

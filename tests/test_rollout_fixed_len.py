@@ -13,13 +13,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pdecontrolgym_tpu.envs.navier_stokes import (
+from pdecontrolgym_jax.envs.navier_stokes import (
     NavierStokesConfig,
     NavierStokesEnv,
     freeze_boundary_condition,
 )
-from pdecontrolgym_tpu.parallel.rollout import rollout
-from pdecontrolgym_tpu.rewards.ns import NSReward
+from pdecontrolgym_jax.parallel.rollout import rollout
+from pdecontrolgym_jax.rewards.ns import NSReward
 
 BC = freeze_boundary_condition({
     "upper": ["Controllable", "Dirchilet"],
@@ -122,9 +122,9 @@ def test_generic_observe_path_matches_carried_obs_path():
     hidden), including across autoresets. Uses traffic (a truncating env
     whose episodes desynchronize) with a policy that CONSUMES obs values,
     so the recomputed observations are live, not dead-coded."""
-    from pdecontrolgym_tpu.envs.traffic_arz import (
+    from pdecontrolgym_jax.envs.traffic_arz import (
         TrafficARZConfig, TrafficARZEnv)
-    from pdecontrolgym_tpu.rewards.traffic import TrafficARZReward
+    from pdecontrolgym_jax.rewards.traffic import TrafficARZReward
 
     cfg = TrafficARZConfig(T=2.0, simulation_type="outlet")
     env = TrafficARZEnv(cfg, TrafficARZReward())

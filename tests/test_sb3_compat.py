@@ -16,8 +16,8 @@ sb3 = pytest.importorskip("stable_baselines3")
 
 import gymnasium as gym  # noqa: E402
 
-import pdecontrolgym_tpu  # noqa: F401,E402  (registers the env IDs)
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D  # noqa: E402
+import pdecontrolgym_jax  # noqa: F401,E402  (registers the env IDs)
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D  # noqa: E402
 
 _SHORT = dict(
     T=0.5, dt=1e-4, X=1.0, dx=1e-2, control_sample_rate=0.1,

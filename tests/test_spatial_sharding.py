@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.parallel.spatial import make_spatial_transport_interval, spatial_mesh
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.parallel.spatial import make_spatial_transport_interval, spatial_mesh
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
 
 
 def test_spatially_sharded_interval_matches_single_device():
@@ -45,8 +45,8 @@ def test_spatially_sharded_episode_matches_env_rewards():
     """Full closed-loop backstepping episode on the sharded state reproduces
     the single-device env's TunedReward1D sequence (the sharded norms/dots
     are psum-reductions, so tolerance covers fp reassociation)."""
-    from pdecontrolgym_tpu.agents.backstepping import transport_kernel
-    from pdecontrolgym_tpu.parallel.spatial import make_spatial_transport_episode
+    from pdecontrolgym_jax.agents.backstepping import transport_kernel
+    from pdecontrolgym_jax.parallel.spatial import make_spatial_transport_episode
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     assert jax.device_count() >= 8
@@ -100,13 +100,13 @@ def test_spatially_sharded_ns_step_matches_single_device():
     """2D slab decomposition (rows over the mesh, one-row ppermute halos per
     stencil/Jacobi sweep) reproduces the single-device NS projection step
     exactly, including the sequential Neumann pressure-edge corner chain."""
-    from pdecontrolgym_tpu.envs.navier_stokes import (
+    from pdecontrolgym_jax.envs.navier_stokes import (
         NavierStokesConfig,
         NavierStokesEnv,
         freeze_boundary_condition,
     )
-    from pdecontrolgym_tpu.parallel.spatial import make_spatial_ns_step
-    from pdecontrolgym_tpu.rewards.ns import NSReward
+    from pdecontrolgym_jax.parallel.spatial import make_spatial_ns_step
+    from pdecontrolgym_jax.rewards.ns import NSReward
 
     assert jax.device_count() >= 8
     mesh = spatial_mesh(jax.devices()[:8])
@@ -162,8 +162,8 @@ def test_make_sharded_env_transport_rollout_matches_unsharded():
     make_sharded_env over an (env=4, x=2) mesh and run it through the normal
     parallel.rollout API — results must match the unsharded rollout (XLA's
     SPMD partitioner only reassociates reductions, so fp tolerance)."""
-    from pdecontrolgym_tpu.parallel.rollout import rollout
-    from pdecontrolgym_tpu.parallel.spatial import env_spatial_mesh, make_sharded_env
+    from pdecontrolgym_jax.parallel.rollout import rollout
+    from pdecontrolgym_jax.parallel.spatial import env_spatial_mesh, make_sharded_env
 
     cfg = Boundary1DConfig(
         T=0.05, dt=1e-4, X=1.0, dx=1.0 / 256, control_sample_rate=0.01,
@@ -191,14 +191,14 @@ def test_make_sharded_env_transport_rollout_matches_unsharded():
 
 
 def test_make_sharded_env_ns_rollout_matches_unsharded():
-    from pdecontrolgym_tpu.envs.navier_stokes import (
+    from pdecontrolgym_jax.envs.navier_stokes import (
         NavierStokesConfig,
         NavierStokesEnv,
         freeze_boundary_condition,
     )
-    from pdecontrolgym_tpu.parallel.rollout import rollout
-    from pdecontrolgym_tpu.parallel.spatial import env_spatial_mesh, make_sharded_env
-    from pdecontrolgym_tpu.rewards.ns import NSReward
+    from pdecontrolgym_jax.parallel.rollout import rollout
+    from pdecontrolgym_jax.parallel.spatial import env_spatial_mesh, make_sharded_env
+    from pdecontrolgym_jax.rewards.ns import NSReward
 
     bc = freeze_boundary_condition({
         "upper": ["Controllable", "Dirchilet"],
@@ -210,7 +210,7 @@ def test_make_sharded_env_ns_rollout_matches_unsharded():
     cfg = NavierStokesConfig(
         T=6e-3, dt=1e-3, X=1.0, dx=1.0 / (n - 1), Y=1.0, dy=1.0 / (n - 1),
         viscosity=0.02, dtype=jnp.float32, pressure_solver="direct",
-        step_backend="xla", boundary_condition=bc,
+        boundary_condition=bc,
     )
     env = NavierStokesEnv(
         cfg, NSReward(0.1),
@@ -238,7 +238,7 @@ def test_make_sharded_env_ns_rollout_matches_unsharded():
 def test_make_sharded_env_rejects_pallas_backends():
     import pytest as _pytest
 
-    from pdecontrolgym_tpu.parallel.spatial import env_spatial_mesh, make_sharded_env
+    from pdecontrolgym_jax.parallel.spatial import env_spatial_mesh, make_sharded_env
 
     cfg = Boundary1DConfig(
         T=0.05, dt=1e-4, X=1.0, dx=1.0 / 256, control_sample_rate=0.01,
@@ -251,8 +251,8 @@ def test_make_sharded_env_rejects_pallas_backends():
 
 def test_make_sharded_env_through_vector_adapter():
     """The gymnasium VectorEnv adapter accepts a spatially sharded env."""
-    from pdecontrolgym_tpu.compat.vector import PDEVectorEnv
-    from pdecontrolgym_tpu.parallel.spatial import env_spatial_mesh, make_sharded_env
+    from pdecontrolgym_jax.compat.vector import PDEVectorEnv
+    from pdecontrolgym_jax.parallel.spatial import env_spatial_mesh, make_sharded_env
 
     cfg = Boundary1DConfig(
         T=0.05, dt=1e-4, X=1.0, dx=1.0 / 256, control_sample_rate=0.01,

@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
-from pdecontrolgym_tpu.rewards.traffic import TrafficARZReward
+from pdecontrolgym_jax.envs.traffic_arz import TrafficARZConfig, TrafficARZEnv
+from pdecontrolgym_jax.rewards.traffic import TrafficARZReward
 
 from reference_loader import load_reference_module
 
@@ -27,7 +27,7 @@ def _ref_env(simulation_type, control_freq=1):
     )
 
 
-def _tpu_env(simulation_type, control_freq=1):
+def _jax_env(simulation_type, control_freq=1):
     cfg = TrafficARZConfig(
         simulation_type=simulation_type,
         control_freq=control_freq,
@@ -42,7 +42,7 @@ def test_open_loop_parity(mode, cf):
     ref = _ref_env(mode, cf)
     robs, _ = ref.reset()
 
-    env = _tpu_env(mode, cf)
+    env = _jax_env(mode, cf)
     step = jax.jit(env.step)
     state, tobs = env.init(None)
     np.testing.assert_allclose(robs, np.asarray(tobs), rtol=1e-12)
@@ -97,28 +97,28 @@ def test_outlet_backstepping_closed_loop_parity_and_early_stop():
         steps += 1
     ref_steps = steps
 
-    env = _tpu_env("outlet")
+    env = _jax_env("outlet")
     step = jax.jit(env.step)
     state, tobs = env.init(None)
-    tpu_rews, done, steps = [], False, 0
+    jax_rews, done, steps = [], False, 0
     while not done and steps < 5000:
         o = np.asarray(tobs)
         a = controller(attrs, o[M:], o[:M])
         state, out = step(state, jnp.asarray([a]))
         tobs = out.obs
-        tpu_rews.append(float(out.reward))
+        jax_rews.append(float(out.reward))
         done = bool(out.terminated) or bool(out.truncated)
         steps += 1
 
     assert ref_steps == steps  # identical episode length
-    np.testing.assert_allclose(ref_rews, tpu_rews, rtol=1e-8)
+    np.testing.assert_allclose(ref_rews, jax_rews, rtol=1e-8)
     # controller drives the tracking error down by >10x over the episode
-    assert tpu_rews[-1] > tpu_rews[0] / 10
+    assert jax_rews[-1] > jax_rews[0] / 10
 
 
 def test_invalid_configs_raise():
     with pytest.raises(ValueError, match="equilibrium"):
-        _tpu_env("inlet")  # default ok...
+        _jax_env("inlet")  # default ok...
         TrafficARZEnv(
             TrafficARZConfig(simulation_type="inlet", v_steady=11.0), TrafficARZReward()
         )
@@ -127,7 +127,7 @@ def test_invalid_configs_raise():
 
 
 def test_train_mode_resamples_steady_state():
-    env = _tpu_env("outlet-train")
+    env = _jax_env("outlet-train")
     seen = set()
     for i in range(12):
         state, obs = env.init(jax.random.key(i))

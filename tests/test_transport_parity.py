@@ -1,4 +1,4 @@
-"""Golden-trajectory parity: TPU transport env vs the actual reference env.
+"""Golden-trajectory parity: the JAX transport env vs the actual reference env.
 
 Acceptance bar from BASELINE.json: trajectories and returns comparable against
 the reference solvers under fixed seed and identical control sequences, within
@@ -11,10 +11,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pdecontrolgym_tpu.envs.common import Boundary1DConfig
-from pdecontrolgym_tpu.envs.transport import TransportEnv
-from pdecontrolgym_tpu.rewards.tuned import TunedReward1D
-from pdecontrolgym_tpu.agents.backstepping import transport_kernel, transport_control
+from pdecontrolgym_jax.envs.common import Boundary1DConfig
+from pdecontrolgym_jax.envs.transport import TransportEnv
+from pdecontrolgym_jax.rewards.tuned import TunedReward1D
+from pdecontrolgym_jax.agents.backstepping import transport_kernel, transport_control
 
 from reference_loader import load_reference_module
 
@@ -54,7 +54,7 @@ def _make_reference_env(control_type="Dirchilet", sensing_loc="full", u0=None):
     )
 
 
-def _make_tpu_env(control_type="Dirchilet", sensing_loc="full"):
+def _make_jax_env(control_type="Dirchilet", sensing_loc="full"):
     cfg = Boundary1DConfig(
         T=T,
         dt=DT,
@@ -87,24 +87,24 @@ def test_open_loop_trajectory_match(control_type):
         if term or trunc:
             break
 
-    env = _make_tpu_env(control_type=control_type)
+    env = _make_jax_env(control_type=control_type)
     step = jax.jit(env.step)
     state, obs0 = env.init_from(u0, _beta(NX))
-    tpu_traj, tpu_rews = [np.asarray(obs0)], []
+    jax_traj, jax_rews = [np.asarray(obs0)], []
     done = False
     for c in controls:
         if done:
             break
         state, out = step(state, jnp.float32(c))
-        tpu_traj.append(np.asarray(out.obs))
-        tpu_rews.append(float(out.reward))
+        jax_traj.append(np.asarray(out.obs))
+        jax_rews.append(float(out.reward))
         done = bool(out.terminated) or bool(out.truncated)
 
-    assert len(ref_traj) == len(tpu_traj)
-    for a, b in zip(ref_traj, tpu_traj):
+    assert len(ref_traj) == len(jax_traj)
+    for a, b in zip(ref_traj, jax_traj):
         scale = max(1.0, np.abs(a).max())
         np.testing.assert_allclose(a, b, atol=2e-3 * scale, rtol=0)
-    np.testing.assert_allclose(ref_rews, tpu_rews, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(ref_rews, jax_rews, rtol=2e-3, atol=2e-3)
 
 
 def test_closed_loop_backstepping_match():
@@ -122,19 +122,19 @@ def test_closed_loop_backstepping_match():
         ref_total += r
     ref_final = obs.copy()
 
-    env = _make_tpu_env()
+    env = _make_jax_env()
     step = jax.jit(env.step)
     state, obs = env.init_from(u0, _beta(NX))
-    tpu_total, done = 0.0, False
+    jax_total, done = 0.0, False
     while not done:
         action = transport_control(jnp.asarray(kernel), obs, DX)
         state, out = step(state, action)
         obs = out.obs
-        tpu_total += float(out.reward)
+        jax_total += float(out.reward)
         done = bool(out.terminated) or bool(out.truncated)
 
     np.testing.assert_allclose(np.asarray(obs), ref_final, atol=1e-3)
-    assert abs(ref_total - tpu_total) < 0.05 * max(1.0, abs(ref_total))
+    assert abs(ref_total - jax_total) < 0.05 * max(1.0, abs(ref_total))
 
 
 @pytest.mark.parametrize(
@@ -147,7 +147,7 @@ def test_sensing_variants_match(sensing_loc, control_type):
 
     ref = _make_reference_env(control_type=control_type, sensing_loc=sensing_loc, u0=u0)
     ref_obs, _ = ref.reset()
-    env = _make_tpu_env(control_type=control_type, sensing_loc=sensing_loc)
+    env = _make_jax_env(control_type=control_type, sensing_loc=sensing_loc)
     step = jax.jit(env.step)
     state, obs0 = env.init_from(u0, _beta(NX))
 
@@ -164,7 +164,7 @@ def test_sensing_variants_match(sensing_loc, control_type):
 def test_batched_vmap_rollout():
     """4096-env lockstep batching is the raison d'être — smoke-check shapes
     and per-env independence on a small batch."""
-    env = _make_tpu_env()
+    env = _make_jax_env()
     B = 16
     keys = jax.random.split(jax.random.key(0), B)
     batched_init = jax.jit(jax.vmap(env.init))
